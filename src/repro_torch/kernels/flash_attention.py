@@ -1,0 +1,129 @@
+"""Flash-attention forward on Hopper: builds, binds and launches the CUDA
+kernel in ``csrc/flash_attention_fwd.cu`` (twin of
+``repro.kernels.flash_attention``; the source's header says what bounds it
+and how it is laid out).
+
+The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
+``build/repro_torch_kernels/`` under the checkout, and loaded with
+``ctypes``.  Nothing is compiled or loaded when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128, 256)
+_lib = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                           "the flash-attention kernel cannot be built")
+    return path
+
+
+def build() -> Path:
+    """Compile the kernel library once per source digest; returns its path.
+    ptxas's report (registers, shared memory, spills) is kept beside it."""
+    digest = hashlib.blake2b(SOURCE.read_bytes(), digest_size=8).hexdigest()
+    out = BUILD_DIR / f"libflash_attention_fwd-{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building "
+                           f"{SOURCE.name}:\n{proc.stderr}")
+    out.with_name(f"{out.stem}.ptxas.txt").write_text(proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fa_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                               ctypes.c_float, ci, ci, vp]
+        lib.fa_fwd.restype = ci
+        lib.fa_block_q.argtypes = []
+        lib.fa_block_q.restype = ci
+        lib.fa_block_k.argtypes = [ci]
+        lib.fa_block_k.restype = ci
+        lib.fa_error_string.argtypes = [ci]
+        lib.fa_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"flash_attention_fwd takes CUDA tensors; {name} "
+                             f"is on {t.device}")
+        if t.dtype not in _DTYPE_CODES:
+            raise ValueError(f"{name}.dtype {t.dtype} not in "
+                             f"{sorted(map(str, _DTYPE_CODES))}")
+        if t.ndim != 3:
+            raise ValueError(f"{name} must be 3-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
+    bh, sq, hd = q.shape
+    bkv, sk, hdk = k.shape
+    if tuple(v.shape) != (bkv, sk, hdk) or hdk != hd:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit (BH,Sq,hd),(BKV,Sk,hd)")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    if bkv == 0 or bh % bkv or bh > 65535:
+        raise ValueError(f"BH={bh} must be a multiple of BKV={bkv} and "
+                         f"at most 65535")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """q (BH, Sq, hd); k, v (BKV, Sk, hd), BH = BKV * G; fp32 or bf16 CUDA
+    tensors.  Returns (BH, Sq, hd) in q's dtype.  Launches the kernel on
+    the current stream or raises; it never falls back."""
+    _check(q, k, v)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    bh, sq, hd = q.shape
+    bkv, sk, _ = k.shape
+    lib = _load()
+    block_q, block_k = lib.fa_block_q(), lib.fa_block_k(hd)
+    if sq == 0 or sk == 0 or sq % block_q or sk % block_k:
+        raise ValueError(f"Sq={sq} must be a positive multiple of {block_q} "
+                         f"and Sk={sk} of {block_k}")
+    scale = hd ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.fa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), _DTYPE_CODES[q.dtype], bh, bkv, sq, sk,
+                        hd, float(scale), int(bool(causal)), int(window),
+                        stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
+                           f"{rc} ({lib.fa_error_string(rc).decode()})")
+    return out

@@ -1,0 +1,230 @@
+"""Attention (torch twin of the GQA part of ``repro.models.attention``):
+full and local-window GQA for prefill, and KV-cache decode.
+
+Prefill attention is q-chunked (scores never materialize beyond
+(B, KV, G, q_chunk, S)) unless the "flash" backend is selected and the
+shapes meet the kernel's contract; then it goes through
+``kernels.ops.flash_attention`` (the hand-written kernel on CUDA, its plain
+version on the CPU).
+
+Left out until their slices land (ROADMAP.md, Queue 1): MLA and
+cross-attention (other families), and the sharded ``expand`` GQA layout
+(multi-device; on one device the reference never takes it).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import DEFAULT_POLICY, Pm, rms_head_norm, rope_qk
+
+NEG_INF = -1e30
+
+#: "chunked" (plain torch, q-chunked; default) or "flash" (the kernel on
+#: CUDA, its plain version on the CPU).  Falls back to chunked when the
+#: shapes don't meet the kernel's tiling contract.
+_BACKEND = "chunked"
+
+
+def set_attention_backend(name: str) -> None:
+    global _BACKEND
+    assert name in ("chunked", "flash"), name
+    _BACKEND = name
+
+
+def get_attention_backend() -> str:
+    return _BACKEND
+
+
+def _flash_ok(q, k, v, q_positions, causal) -> bool:
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    if hd != v.shape[-1] or hd not in (64, 128, 256):
+        return False
+    if sq % 128 or sk % 128:
+        return False
+    if causal and sq != sk:
+        return False
+    return True
+
+
+# --------------------------------------------------------------------------
+# Param defs
+# --------------------------------------------------------------------------
+
+def attn_defs(cfg: ArchConfig):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    defs = {
+        "wq": Pm((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": Pm((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": Pm((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": Pm((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = Pm((hd,), ("head_dim",), init="ones")
+        defs["k_norm"] = Pm((hd,), ("head_dim",), init="ones")
+    return defs
+
+
+# --------------------------------------------------------------------------
+# Core chunked softmax attention (GQA; causal or local window)
+# --------------------------------------------------------------------------
+
+def _fold_gqa(q, n_kv):
+    """(B,S,H,hd) -> (B,S,KV,G,hd)."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, hd)
+
+
+def _mask_bias(q_pos, k_pos, window: int):
+    """(Q,K) additive mask: causal, optionally local-window."""
+    ok = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        ok &= k_pos[None, :] > (q_pos[:, None] - window)
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def _softmax_fp32(s):
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
+                  q_chunk: int = 1024, causal: bool = True):
+    """q (B,Sq,H,hd); k,v (B,Sk,KV,hd).  fp32 softmax; q-chunked (default)
+    or the flash kernel when enabled + shape-compatible."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    if _BACKEND == "flash" and _flash_ok(q, k, v, q_positions, causal):
+        from repro_torch.kernels import ops as kops
+        qt = q.transpose(1, 2).reshape(b * h, sq, hd)
+        kt = k.transpose(1, 2).reshape(b * kvh, k.shape[1], hd)
+        vt = v.transpose(1, 2).reshape(b * kvh, v.shape[1], hd)
+        ot = kops.flash_attention(qt, kt, vt, causal, window)
+        return ot.reshape(b, h, sq, hd).transpose(1, 2)
+
+    scale = hd ** -0.5
+    hd_v = v.shape[-1]
+    n_chunks = max(sq // q_chunk, 1)
+    kf = k.float()
+    qf = _fold_gqa(q, kvh)                            # (B,Sq,KV,G,hd)
+
+    def chunk(qc, qpos_c):
+        # fp32 scores (the reference's preferred_element_type=float32)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
+        if causal:
+            s = s + _mask_bias(qpos_c, k_positions, window)[None, None, None]
+        p = _softmax_fp32(s)
+        return torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), v)
+
+    outs = [chunk(qc, pc) for qc, pc in
+            zip(qf.chunk(n_chunks, dim=1), q_positions.chunk(n_chunks))]
+    out = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
+    return out.reshape(b, sq, h, hd_v)
+
+
+# --------------------------------------------------------------------------
+# Train / prefill
+# --------------------------------------------------------------------------
+
+def _qkv(cfg: ArchConfig, p, x, positions, policy):
+    """Projections, optional q/k norm and rotary.  positions (B?,S)."""
+    c = policy.c
+    q = torch.einsum("bsd,dhk->bshk", x, c(p["wq"]))
+    k = torch.einsum("bsd,dhk->bshk", x, c(p["wk"]))
+    v = torch.einsum("bsd,dhk->bshk", x, c(p["wv"]))
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
+    if cfg.pos_emb == "rope":
+        rot = int(cfg.hd * cfg.rope_pct) // 2 * 2
+        pos2d = positions if positions.ndim == 2 else positions[None]
+        q, k = rope_qk(q, k, pos2d, rot, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_forward(cfg: ArchConfig, p, x, positions, *, window: int = 0,
+                 policy=DEFAULT_POLICY, q_chunk: int = 1024,
+                 causal: bool = True):
+    """Self-attention over x (B,S,D) with per-token positions (B?,S)."""
+    q, k, v = _qkv(cfg, p, x, positions, policy)
+    pos1d = positions[0] if positions.ndim == 2 else positions
+    out = gqa_attention(q, k, v, q_positions=pos1d, k_positions=pos1d,
+                        window=window, q_chunk=q_chunk, causal=causal)
+    return torch.einsum("bshk,hkd->bsd", out, policy.c(p["wo"]))
+
+
+# --------------------------------------------------------------------------
+# Decode with KV cache
+# --------------------------------------------------------------------------
+
+def kv_cache_defs(cfg: ArchConfig, batch: int, max_seq: int,
+                  dtype=torch.bfloat16):
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    s = min(max_seq, cfg.window) if cfg.window else max_seq
+    return {"k": Pm((batch, s, kv, hd), ("batch", "kv_seq", "kv_heads", "head_dim"),
+                    init="zeros", dtype=dtype),
+            "v": Pm((batch, s, kv, hd), ("batch", "kv_seq", "kv_heads", "head_dim"),
+                    init="zeros", dtype=dtype)}
+
+
+def _cache_update(cache, new, slot):
+    """cache (B,S,KV,hd) <- new (B,1,KV,hd) at per-batch slot (B,).
+    Writes IN PLACE (the reference returns an updated copy and donates the
+    old buffer; here the old contents are not needed either) and returns
+    ``cache``."""
+    cache[torch.arange(cache.shape[0], device=cache.device), slot] = new[:, 0]
+    return cache
+
+
+def attn_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
+    """One-token decode.  x (B,1,D); pos (B,) absolute position of the new
+    token; cache dict{k,v} (B,S(,window),KV,hd), updated in place.
+    Returns (y, cache)."""
+    q, k, v = _qkv(cfg, p, x, pos[:, None], policy)
+
+    s_cache = cache["k"].shape[1]
+    slot = torch.remainder(pos, s_cache) if cfg.window else pos  # ring buffer
+    ck = _cache_update(cache["k"], k.to(cache["k"].dtype), slot)
+    cv = _cache_update(cache["v"], v.to(cache["v"].dtype), slot)
+
+    kvh, hd = cfg.n_kv_heads, cfg.hd
+    idx = torch.arange(s_cache, device=pos.device)
+    if cfg.window:
+        valid = (idx[None] <= slot[:, None]) | (pos[:, None] >= s_cache)
+    else:
+        valid = idx[None] <= pos[:, None]                     # (B,S)
+
+    qf = _fold_gqa(q, kvh)                                    # (B,1,KV,G,hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), ck.float()) * (hd ** -0.5)
+    s = torch.where(valid[:, None, None, None], s, NEG_INF)
+    pr = _softmax_fp32(s).to(x.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", pr, cv)
+    o = o.reshape(x.shape[0], 1, cfg.n_heads, hd)
+    y = torch.einsum("bshk,hkd->bsd", o, policy.c(p["wo"]))
+    return y, {"k": ck, "v": cv}
+
+
+def attn_prefill(cfg: ArchConfig, p, x, positions, max_cache: int, *,
+                 window: int = 0, policy=DEFAULT_POLICY, q_chunk: int = 1024):
+    """Full-sequence attention that also materializes the decode KV cache
+    (post-rope keys, ring-buffer slots for windowed layers)."""
+    q, k, v = _qkv(cfg, p, x, positions, policy)
+    pos1d = positions[0] if positions.ndim == 2 else positions
+    out = gqa_attention(q, k, v, q_positions=pos1d, k_positions=pos1d,
+                        window=window, q_chunk=q_chunk)
+    y = torch.einsum("bshk,hkd->bsd", out, policy.c(p["wo"]))
+
+    b, s = x.shape[0], x.shape[1]
+    s_cache = min(max_cache, window) if window else max_cache
+    n_keep = min(s, s_cache)
+    slots = torch.arange(s - n_keep, s, device=x.device) % s_cache
+    cache_dt = x.dtype                      # cache dtype == compute dtype
+    ck = torch.zeros((b, s_cache) + tuple(k.shape[2:]), dtype=cache_dt,
+                     device=x.device)
+    cv = torch.zeros((b, s_cache) + tuple(v.shape[2:]), dtype=cache_dt,
+                     device=x.device)
+    ck[:, slots] = k[:, s - n_keep:].to(cache_dt)
+    cv[:, slots] = v[:, s - n_keep:].to(cache_dt)
+    return y, {"k": ck, "v": cv}

@@ -1,0 +1,246 @@
+"""Generic LM composition (torch twin of ``repro.models.model``), for the
+"attn" block kind: the dense decoder stacks.
+
+Every arch is expressed as prefix blocks (list) + a repeated unit (params
+stacked along a leading L dim) + tail.  The reference scans the stacked
+units; here a Python loop indexes the L dim.
+
+Params / cache trees, as in the reference:
+  {"embed":…, "pos"?:…, "prefix":[…], "units": stacked, "tail":[…], "final":…}
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as att
+from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
+                                       apply_norm, embed_defs, embed_tokens,
+                                       lm_logits, mlp_defs, norm_defs)
+from repro_torch.models.params import stack_defs, tree_map
+
+#: Block kinds of the other families, and the ROADMAP.md item that ports them.
+_NOT_PORTED = {
+    "moe": "Queue 1, other families (models/moe.py)",
+    "local_attn": "Queue 1, other families (recurrentgemma)",
+    "rglru": "Queue 1, other families (models/rglru.py)",
+    "mlstm": "Queue 1, other families (models/xlstm.py)",
+    "slstm": "Queue 1, other families (models/xlstm.py)",
+}
+
+
+def _check_kind(cfg: ArchConfig, kind: str) -> None:
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet: ROADMAP.md, "
+            f"{_NOT_PORTED[kind]}")
+    if kind != "attn":
+        raise KeyError(kind)
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            "MLA attention is not ported yet: ROADMAP.md, Queue 1, other "
+            "families (MLA in models/attention.py)")
+
+
+# --------------------------------------------------------------------------
+# Stack plan
+# --------------------------------------------------------------------------
+
+def stack_plan(cfg: ArchConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...], int,
+                                         Tuple[str, ...]]:
+    """(prefix_kinds, unit_kinds, n_units, tail_kinds)."""
+    if cfg.moe is not None:
+        k = cfg.moe.first_k_dense
+        return (("attn",) * k, ("moe",), cfg.n_layers - k, ())
+    if cfg.block_pattern:
+        unit = cfg.block_pattern
+        tail = cfg.pattern_tail
+        n = (cfg.n_layers - len(tail)) // len(unit)
+        return ((), unit, n, tail)
+    return ((), ("attn",), cfg.n_layers, ())
+
+
+# --------------------------------------------------------------------------
+# Block dispatch ("attn" kind)
+# --------------------------------------------------------------------------
+
+def block_defs(cfg: ArchConfig, kind: str):
+    _check_kind(cfg, kind)
+    return {"ln1": norm_defs(cfg), "attn": att.attn_defs(cfg),
+            "ln2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
+
+
+def apply_block(cfg, kind, p, x, positions, policy=DEFAULT_POLICY):
+    """Training/prefill-style full-sequence block.  Returns (x, aux, cache)."""
+    _check_kind(cfg, kind)
+    h = apply_norm(cfg, p["ln1"], x, policy)
+    x = x + att.attn_forward(cfg, p["attn"], h, positions, policy=policy)
+    h = apply_norm(cfg, p["ln2"], x, policy)
+    x = x + apply_mlp(cfg, p["mlp"], h, policy)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), None
+
+
+def block_cache_defs(cfg, kind, batch: int, max_seq: int):
+    _check_kind(cfg, kind)
+    return att.kv_cache_defs(cfg, batch, max_seq)
+
+
+def decode_block(cfg, kind, p, x, cache, pos, policy=DEFAULT_POLICY):
+    """One-token decode.  Returns (x, cache); the cache is updated in place."""
+    _check_kind(cfg, kind)
+    h = apply_norm(cfg, p["ln1"], x, policy)
+    a, cache = att.attn_decode(cfg, p["attn"], h, cache, pos, policy=policy)
+    x = x + a
+    h = apply_norm(cfg, p["ln2"], x, policy)
+    return x + apply_mlp(cfg, p["mlp"], h, policy), cache
+
+
+def prefill_block(cfg, kind, p, x, positions, max_cache: int,
+                  policy=DEFAULT_POLICY):
+    """Full-sequence block that also materializes its decode cache."""
+    _check_kind(cfg, kind)
+    h = apply_norm(cfg, p["ln1"], x, policy)
+    a, cache = att.attn_prefill(cfg, p["attn"], h, positions, max_cache,
+                                policy=policy)
+    x = x + a
+    h = apply_norm(cfg, p["ln2"], x, policy)
+    return x + apply_mlp(cfg, p["mlp"], h, policy), cache
+
+
+# --------------------------------------------------------------------------
+# Whole-model param / cache defs
+# --------------------------------------------------------------------------
+
+def lm_param_defs(cfg: ArchConfig, max_seq: int):
+    prefix, unit, n_units, tail = stack_plan(cfg)
+    defs = {"embed": embed_defs(cfg)}
+    if cfg.pos_emb == "learned":
+        defs["pos"] = Pm((max_seq, cfg.d_model), ("seq", "embed"), scale=0.02)
+    defs["prefix"] = [block_defs(cfg, k) for k in prefix]
+    unit_defs = {f"b{i}": block_defs(cfg, k) for i, k in enumerate(unit)}
+    defs["units"] = stack_defs(unit_defs, n_units)
+    defs["tail"] = [block_defs(cfg, k) for k in tail]
+    defs["final"] = norm_defs(cfg)
+    return defs
+
+
+def lm_cache_defs(cfg: ArchConfig, batch: int, max_seq: int):
+    prefix, unit, n_units, tail = stack_plan(cfg)
+    return {"prefix": [block_cache_defs(cfg, k, batch, max_seq) for k in prefix],
+            "units": stack_defs({f"b{i}": block_cache_defs(cfg, k, batch, max_seq)
+                                 for i, k in enumerate(unit)}, n_units),
+            "tail": [block_cache_defs(cfg, k, batch, max_seq) for k in tail]}
+
+
+# --------------------------------------------------------------------------
+# Forward / prefill / decode
+# --------------------------------------------------------------------------
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree: views into the L dim, no copy."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def _stack(trees):
+    """Per-layer trees -> one tree with a leading L dim."""
+    if isinstance(trees[0], dict):
+        return {key: _stack([t[key] for t in trees]) for key in trees[0]}
+    return torch.stack(trees)
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def _embed_in(cfg, params, tokens, extras, policy):
+    x = embed_tokens(cfg, params["embed"], tokens, policy)
+    if cfg.family == "vlm" and extras and "vision_embeds" in extras:
+        v = policy.c(extras["vision_embeds"])
+        x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
+    if cfg.pos_emb == "learned":
+        x = x + policy.c(params["pos"][:tokens.shape[1]])
+    return x
+
+
+def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
+               remat: bool = True):
+    """batch: tokens (B,S) [+ vision_embeds].  Returns (logits, aux).
+    ``remat`` is accepted for signature parity and ignored (no training)."""
+    prefix, unit, n_units, tail = stack_plan(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    x = _embed_in(cfg, params, tokens, batch, policy)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    for k, p in zip(prefix, params["prefix"]):
+        x, a, _ = apply_block(cfg, k, p, x, positions, policy)
+        aux = aux + a
+    for li in range(n_units):
+        unit_p = _layer(params["units"], li)
+        for i, k in enumerate(unit):
+            x, a, _ = apply_block(cfg, k, unit_p[f"b{i}"], x, positions, policy)
+            aux = aux + a
+    for k, p in zip(tail, params["tail"]):
+        x, a, _ = apply_block(cfg, k, p, x, positions, policy)
+        aux = aux + a
+
+    x = apply_norm(cfg, params["final"], x, policy)
+    return lm_logits(cfg, params["embed"], x, policy), aux
+
+
+def lm_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
+               policy=DEFAULT_POLICY):
+    """Prompt pass.  Returns (last-token logits (B,V), cache)."""
+    prefix, unit, n_units, tail = stack_plan(cfg)
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    x = _embed_in(cfg, params, tokens, extras, policy)
+
+    pc = []
+    for k, p in zip(prefix, params["prefix"]):
+        x, cache = prefill_block(cfg, k, p, x, positions, max_cache, policy)
+        pc.append(cache)
+    per_layer = []
+    for li in range(n_units):
+        unit_p = _layer(params["units"], li)
+        caches = {}
+        for i, k in enumerate(unit):
+            x, caches[f"b{i}"] = prefill_block(cfg, k, unit_p[f"b{i}"], x,
+                                               positions, max_cache, policy)
+        per_layer.append(caches)
+    tc = []
+    for k, p in zip(tail, params["tail"]):
+        x, cache = prefill_block(cfg, k, p, x, positions, max_cache, policy)
+        tc.append(cache)
+
+    x = apply_norm(cfg, params["final"], x[:, -1:], policy)
+    logits = lm_logits(cfg, params["embed"], x, policy)[:, 0]
+    return logits, {"prefix": pc, "units": _stack(per_layer), "tail": tc}
+
+
+def lm_decode(cfg: ArchConfig, params, cache, token, pos,
+              policy=DEFAULT_POLICY):
+    """One-token step.  token (B,1) int, pos (B,) absolute positions.
+    Returns (logits (B,V), cache); the cache is updated in place (its
+    stacked unit buffers through per-layer views)."""
+    prefix, unit, n_units, tail = stack_plan(cfg)
+    x = embed_tokens(cfg, params["embed"], token, policy)
+    if cfg.pos_emb == "learned":
+        x = x + policy.c(params["pos"][pos])[:, None]
+
+    for k, p, c0 in zip(prefix, params["prefix"], cache["prefix"]):
+        x, _ = decode_block(cfg, k, p, x, c0, pos, policy)
+    for li in range(n_units):
+        unit_p, unit_c = _layer(params["units"], li), _layer(cache["units"], li)
+        for i, k in enumerate(unit):
+            x, _ = decode_block(cfg, k, unit_p[f"b{i}"], x, unit_c[f"b{i}"],
+                                pos, policy)
+    for k, p, c0 in zip(tail, params["tail"], cache["tail"]):
+        x, _ = decode_block(cfg, k, p, x, c0, pos, policy)
+
+    x = apply_norm(cfg, params["final"], x, policy)
+    logits = lm_logits(cfg, params["embed"], x, policy)[:, 0]
+    return logits, cache

@@ -1,0 +1,35 @@
+"""Family dispatch (torch twin of ``repro.models.registry``): one API over
+the LM families.  The audio family (whisper) is not ported yet."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import model as lm
+from repro_torch.models.params import param_count
+
+
+@dataclass(frozen=True)
+class ModelAPI:
+    param_defs: Callable   # (cfg, max_seq) -> Pm tree
+    forward: Callable      # (cfg, params, batch, policy, remat) -> (logits, aux)
+    cache_defs: Callable   # (cfg, batch, max_seq) -> Pm tree
+    prefill: Callable      # (cfg, params, tokens, extras, max_cache, policy) -> (logits, cache)
+    decode: Callable       # (cfg, params, cache, token, pos, policy) -> (logits, cache)
+
+
+_LM_API = ModelAPI(lm.lm_param_defs, lm.lm_forward, lm.lm_cache_defs,
+                   lm.lm_prefill, lm.lm_decode)
+
+
+def get_api(cfg: ArchConfig) -> ModelAPI:
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "the audio family (whisper) is not ported yet: ROADMAP.md, "
+            "Queue 1, other families (models/whisper.py)")
+    return _LM_API
+
+
+def count_params(cfg: ArchConfig, max_seq: int = 4096) -> int:
+    return param_count(get_api(cfg).param_defs(cfg, max_seq))

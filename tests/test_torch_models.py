@@ -1,0 +1,248 @@
+"""The port's model stack against the JAX package, on the CPU.
+
+Inputs come from numpy with a fixed seed and both sides get the same
+arrays; weights are JAX-initialised and carried into the port by
+``params_from_numpy`` (jax.random and torch.Generator draw different
+streams).  Everything runs in fp32, where the two frameworks differ only
+in summation order."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS, reduce_for_smoke
+from repro.models import attention as j_att
+from repro.models import layers as j_layers
+from repro.models.params import init_params as j_init_params
+from repro.models.registry import get_api as j_get_api
+from repro_torch.configs import ARCHS as T_ARCHS
+from repro_torch.configs import reduce_for_smoke as t_reduce_for_smoke
+from repro_torch.models import attention as t_att
+from repro_torch.models import layers as t_layers
+from repro_torch.models.params import params_from_numpy
+from repro_torch.models.registry import count_params as t_count_params
+from repro_torch.models.registry import get_api as t_get_api
+
+J32 = j_layers.Policy(compute=jnp.float32)
+T32 = t_layers.Policy(compute=torch.float32)
+DENSE = ["granite-34b", "llava-next-34b", "smollm-135m", "stablelm-12b",
+         "yi-9b"]
+# Logits of the smoke stacks are O(1); fp32 with another summation order
+# agrees to ~1e-5, so 1e-4 leaves a margin without hiding a real fault.
+LOGIT_ATOL = 1e-4
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _f32(shape, seed=0):
+    return _rng(seed).standard_normal(shape, dtype=np.float32)
+
+
+def _both(x):
+    return jnp.asarray(x), torch.from_numpy(np.array(x))
+
+
+def _cfgs(name, **changes):
+    jc = reduce_for_smoke(ARCHS[name])
+    tc = t_reduce_for_smoke(T_ARCHS[name])
+    if changes:
+        jc, tc = (dataclasses.replace(c, **changes) for c in (jc, tc))
+    return jc, tc
+
+
+def _params(jc, max_seq):
+    jp = j_init_params(j_get_api(jc).param_defs(jc, max_seq),
+                       jax.random.PRNGKey(0))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _close(t, j, atol):
+    np.testing.assert_allclose(t.detach().float().numpy(),
+                               np.asarray(j, np.float32), atol=atol)
+
+
+# --------------------------------------------------------------- layers
+
+@pytest.mark.parametrize("name", ["smollm-135m", "granite-34b"])  # rms, ln
+def test_apply_norm_matches_jax(name):
+    jc, tc = _cfgs(name)
+    jx, tx = _both(_f32((2, 5, 64), 1))
+    p = {"scale": _f32((64,), 2), "bias": _f32((64,), 3)}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    _close(t_layers.apply_norm(tc, tp, tx, T32),
+           j_layers.apply_norm(jc, jp, jx, J32), 1e-5)
+    _close(t_layers.rms_head_norm(tx, tp["scale"]),
+           j_layers.rms_head_norm(jx, jp["scale"]), 1e-5)
+
+
+@pytest.mark.parametrize("rot", [16, 8])            # full, partial rotary
+def test_rope_qk_matches_jax(rot):
+    jq, tq = _both(_f32((2, 12, 4, 16), 1))
+    jk, tk = _both(_f32((2, 12, 2, 16), 2))
+    pos = _rng(3).integers(0, 4096, (2, 12))
+    jpos, tpos = jnp.asarray(pos, jnp.int32), torch.from_numpy(pos)
+    jo = j_layers.rope_qk(jq, jk, jpos, rot, 10000.0)
+    to = t_layers.rope_qk(tq, tk, tpos, rot, 10000.0)
+    for t, j in zip(to, jo):
+        # angles up to 4096 rad: fp32 cos/sin of two libraries agree to ~1e-6
+        _close(t, j, 1e-5)
+
+
+@pytest.mark.parametrize("mlp", ["swiglu", "geglu", "gelu"])
+def test_apply_mlp_matches_jax(mlp):
+    jc, tc = _cfgs("smollm-135m", mlp=mlp)
+    defs = j_layers.mlp_defs(jc)
+    jp = j_init_params(defs, jax.random.PRNGKey(1))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    jx, tx = _both(_f32((2, 7, 64), 4))
+    _close(t_layers.apply_mlp(tc, tp, tx, T32),
+           j_layers.apply_mlp(jc, jp, jx, J32), 1e-5)
+
+
+@pytest.mark.parametrize("tie", [True, False])
+def test_embed_and_lm_logits_match_jax(tie):
+    jc, tc = _cfgs("smollm-135m", tie_embeddings=tie)
+    jp = j_init_params(j_layers.embed_defs(jc), jax.random.PRNGKey(2))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = _rng(5).integers(0, jc.vocab_size, (2, 9))
+    _close(t_layers.embed_tokens(tc, tp, torch.from_numpy(toks), T32),
+           j_layers.embed_tokens(jc, jp, jnp.asarray(toks), J32), 0)
+    jx, tx = _both(_f32((2, 9, 64), 6))
+    _close(t_layers.lm_logits(tc, tp, tx, T32),
+           j_layers.lm_logits(jc, jp, jx, J32), 1e-5)
+
+
+# ------------------------------------------------------------ attention
+
+@pytest.mark.parametrize("window,q_chunk", [(0, 1024), (16, 1024), (0, 16),
+                                            (16, 16)])
+def test_gqa_attention_chunked_matches_jax(window, q_chunk):
+    """GQA 4 heads over 2 kv heads; local window; several q chunks."""
+    jq, tq = _both(_f32((2, 48, 4, 16), 1))
+    jk, tk = _both(_f32((2, 48, 2, 16), 2))
+    jv, tv = _both(_f32((2, 48, 2, 16), 3))
+    pos = np.arange(48)
+    jo = j_att.gqa_attention(jq, jk, jv, q_positions=jnp.asarray(pos),
+                             k_positions=jnp.asarray(pos), window=window,
+                             q_chunk=q_chunk)
+    to = t_att.gqa_attention(tq, tk, tv, q_positions=torch.from_numpy(pos),
+                             k_positions=torch.from_numpy(pos), window=window,
+                             q_chunk=q_chunk)
+    _close(to, jo, 1e-5)
+
+
+# ---------------------------------------------------------- whole model
+
+@pytest.mark.parametrize("name", DENSE)
+def test_lm_forward_matches_jax(name):
+    jc, tc = _cfgs(name)
+    jp, tp = _params(jc, 32)
+    toks = _rng(1).integers(0, jc.vocab_size, (2, 32))
+    jl, _ = j_get_api(jc).forward(jc, jp, {"tokens": jnp.asarray(toks)}, J32)
+    tl, aux = t_get_api(tc).forward(tc, tp, {"tokens": torch.from_numpy(toks)},
+                                    T32)
+    assert tl.shape == (2, 32, jc.vocab_size) and float(aux) == 0.0
+    _close(tl, jl, LOGIT_ATOL)
+
+
+def test_lm_prefill_decode_match_jax():
+    jc, tc = _cfgs("smollm-135m")
+    B, S, P = 2, 32, 24
+    jp, tp = _params(jc, S)
+    toks = _rng(1).integers(0, jc.vocab_size, (B, S))
+    japi, tapi = j_get_api(jc), t_get_api(tc)
+    jl, jcache = japi.prefill(jc, jp, jnp.asarray(toks[:, :P]), {}, S, J32)
+    tl, tcache = tapi.prefill(tc, tp, torch.from_numpy(toks[:, :P]), {}, S,
+                              T32)
+    _close(tl, jl, LOGIT_ATOL)
+    # post-rope keys reach |k| ~ 15: fp32 agreement ~3e-6 relative
+    _close(tcache["units"]["b0"]["k"], jcache["units"]["b0"]["k"], 1e-4)
+    for t in range(P, S):
+        jl, jcache = japi.decode(jc, jp, jcache, jnp.asarray(toks[:, t:t + 1]),
+                                 jnp.full((B,), t, jnp.int32), J32)
+        tl, tcache = tapi.decode(tc, tp, tcache, torch.from_numpy(toks[:, t:t + 1]),
+                                 torch.full((B,), t), T32)
+        _close(tl, jl, LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_prefill_decode_matches_forward(name):
+    """Twin of test_models_smoke.py::test_prefill_decode_matches_forward,
+    on the port alone (same atol 2e-3)."""
+    _, tc = _cfgs(name)
+    api = t_get_api(tc)
+    B, S, P = 2, 32, 24
+    jp, tp = _params(reduce_for_smoke(ARCHS[name]), S)
+    toks = torch.from_numpy(_rng(1).integers(0, tc.vocab_size, (B, S)))
+    full, _ = api.forward(tc, tp, {"tokens": toks}, T32)
+    lg, cache = api.prefill(tc, tp, toks[:, :P], {}, S, T32)
+    errs = [float((lg - full[:, P - 1]).abs().max())]
+    for t in range(P, S):
+        lg, cache = api.decode(tc, tp, cache, toks[:, t:t + 1],
+                               torch.full((B,), t), T32)
+        errs.append(float((lg - full[:, t]).abs().max()))
+    assert max(errs) < 2e-3, (name, max(errs))
+
+
+def test_lm_forward_flash_backend_matches_jax_pallas():
+    """head_dim 64 and 128 tokens meet the flash contract: the JAX side runs
+    the interpreted Pallas kernel, the port its kernel's plain version."""
+    jc, tc = _cfgs("smollm-135m", head_dim=64)
+    jp, tp = _params(jc, 128)
+    toks = _rng(2).integers(0, jc.vocab_size, (1, 128))
+    try:
+        j_att.set_attention_backend("flash")
+        t_att.set_attention_backend("flash")
+        jl, _ = j_get_api(jc).forward(jc, jp, {"tokens": jnp.asarray(toks)},
+                                      J32)
+        tl, _ = t_get_api(tc).forward(tc, tp, {"tokens": torch.from_numpy(toks)},
+                                      T32)
+        assert t_att._flash_ok(torch.zeros(1, 128, 4, 64), torch.zeros(1, 128, 2, 64),
+                               torch.zeros(1, 128, 2, 64), None, True)
+    finally:
+        j_att.set_attention_backend("chunked")
+        t_att.set_attention_backend("chunked")
+    _close(tl, jl, LOGIT_ATOL)
+
+
+def test_count_params_matches_jax_and_unported_families_raise():
+    from repro.models.registry import count_params as j_count_params
+    for name in DENSE:
+        assert t_count_params(T_ARCHS[name]) == j_count_params(ARCHS[name])
+    assert t_count_params(T_ARCHS["smollm-135m"]) == T_ARCHS["smollm-135m"].n_params()
+    for name in ["qwen2-moe-a2.7b", "xlstm-1.3b", "recurrentgemma-9b",
+                 "whisper-tiny", "deepseek-v2-lite-16b"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            t_count_params(T_ARCHS[name])
+
+
+def test_windowed_attn_prefill_decode_ring_buffer_matches_jax():
+    """A local-window layer: prefill fills the ring buffer, decode wraps it
+    (attention.py's slot = pos % window) past the window size."""
+    jc, tc = _cfgs("smollm-135m", window=16)
+    jp = j_init_params(j_att.attn_defs(jc), jax.random.PRNGKey(3))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    B, P, S = 2, 12, 30
+    x = _f32((B, S, jc.d_model), 7)
+    pos = np.arange(P)
+    jy, jcache = j_att.attn_prefill(jc, jp, jnp.asarray(x[:, :P]),
+                                    jnp.asarray(pos), S, window=16, policy=J32)
+    ty, tcache = t_att.attn_prefill(tc, tp, torch.from_numpy(x[:, :P]),
+                                    torch.from_numpy(pos), S, window=16,
+                                    policy=T32)
+    # outputs reach |y| ~ 2 and agree to ~8e-6 relative in fp32
+    _close(ty, jy, 1e-4)
+    for t in range(P, S):
+        jy, jcache = j_att.attn_decode(jc, jp, jnp.asarray(x[:, t:t + 1]),
+                                       jcache, jnp.full((B,), t, jnp.int32),
+                                       policy=J32)
+        ty, tcache = t_att.attn_decode(tc, tp, torch.from_numpy(x[:, t:t + 1]),
+                                       tcache, torch.full((B,), t), policy=T32)
+        _close(ty, jy, 1e-4)
+    _close(tcache["k"], jcache["k"], 1e-4)
