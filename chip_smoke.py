@@ -8,26 +8,40 @@ Run from the root of a checkout, with no arguments:
 It imports nothing of JAX and nothing of the ``repro`` package.  Phases,
 one JSON line each; any failure exits non-zero:
 
-  build         compile the flash-attention kernel from
-                src/repro_torch/kernels/csrc into build/repro_torch_kernels
-  kernels       ops.flash_attention on CUDA against its plain version on the
-                same CUDA tensors: the sweep of tests/test_kernels.py in fp32
-                and bf16, the 384-length case, constant V, and the shapes
-                the serving path gives the kernel
-  serve-parity  full-width smollm-135m (seeded random weights), fp32, B=2,
-                prompt 128: 30 kernel launches for the prefill; flash vs
-                chunked block by block at full depth, and logits and greedy
-                tokens end to end at a 2-layer cut
-  serve         the repro_torch.launch.serve path at full width, bf16, B=4,
-                prompt 128, 32 new tokens: the main path, its launch count
-  timing        the kernel at the serving prefill shape against its plain
-                version and torch's SDPA, with the card's bound
+  build          compile the three kernel libraries from
+                 src/repro_torch/kernels/csrc into build/repro_torch_kernels,
+                 one nvcc each, all at once; print each ptxas report
+  kernels        each kernel through kernels/ops.py on CUDA against its plain
+                 version on the same CUDA tensors: flash attention over the
+                 sweep of tests/test_kernels.py, constant V and the shapes of
+                 both serving paths; the RG-LRU scan over its sweep, the
+                 serving shape and linearity; int8 quantize/dequantize codes
+                 (bit-exact) and scales, the half-step bound and idempotence
+  serve-parity   full-width smollm-135m (seeded random weights), fp32, B=2,
+                 prompt 128: 30 flash launches for the prefill; flash vs
+                 chunked block by block at full depth, and logits and greedy
+                 tokens end to end at a 2-layer cut
+  serve          the repro_torch.launch.serve path, smollm-135m at full
+                 width, bf16, B=4, prompt 128, 32 new tokens: a main path,
+                 its launch count
+  serve-parity-hybrid
+                 full-width recurrentgemma-9b (seeded random weights), fp32,
+                 B=1, prompt 2560 (past the 2048 window): kernels vs plain
+                 paths block by block over all 38 blocks, and logits and
+                 greedy tokens end to end at a 5-layer cut
+  serve-hybrid   the repro_torch.launch.serve path, recurrentgemma-9b at full
+                 width, bf16, B=2, prompt 2560, 32 new tokens: the other main
+                 path; 12 flash and 26 RG-LRU launches, peak memory
+  timing         every kernel at the shapes its path gives it against its
+                 plain version, a PyTorch call where one computes the same
+                 function, and the card's bound
 
 Then one line {"kernels": [...]}, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -39,12 +53,26 @@ DEV = "cuda"
 ARCH = "smollm-135m"                               # served at full width
 CUT_LAYERS = 2                                     # serve-parity's depth cut
 SLICE_SHAPE = dict(b=4, h=9, kv=3, s=128, hd=64)   # smollm-135m prefill, B=4
+HYBRID = "recurrentgemma-9b"                       # served at full width
+HYBRID_CUT_LAYERS = 5                              # one unit + the 2-block tail
+HYBRID_PARITY_PROMPT = 2560                        # > window, multiple of 128
+HYBRID_SERVE = dict(batch=2, prompt=2560, new_tokens=32)
+# recurrentgemma-9b prefill at B=2: 32 query heads over 2 kv heads, hd 256
+HYBRID_FLASH_SHAPE = dict(b=2, h=16, kv=1, s=2560, hd=256, window=2048)
+RGLRU_SHAPE = (2, 2560, 4096)                      # its rglru prefill, B=2
+QUANT_N = 4096 * 12288                             # one of its MLP matrices
+QUANT_BLOCK = 256
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12                           # dense bf16 tensor cores
+FP32_FLOP_PER_S = 67e12                            # fp32 outside tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}          # tests/test_kernels.py
 SWEEP = [(4, 2, 256, 256, 64, True, 0), (2, 2, 128, 128, 128, True, 0),
          (8, 2, 128, 128, 64, True, 0), (6, 2, 256, 256, 64, True, 64),
          (2, 2, 128, 384, 64, False, 0), (2, 1, 512, 512, 256, True, 0)]
+RGLRU_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # tests/test_kernels.py:99
+RGLRU_SWEEP = [(2, 256, 512), (1, 128, 1024), (3, 512, 256), (2, 128, 128)]
+QUANT_SIZES = [(4096, 256), (512, 128), (65536, 256)]
+PARITY_TOL = 1e-3                                  # kernel vs plain paths
 
 
 class PhaseFailed(Exception):
@@ -71,12 +99,43 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+def free() -> None:
+    """Drop what is no longer referenced, so one 9B model is alive at a
+    time."""
     import torch
-    for _ in range(warmup):
-        fn()
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def free_and_reset_peak() -> None:
+    import torch
+    free()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes():
+    import torch
+    return torch.cuda.max_memory_allocated() if DEV == "cuda" else None
+
+
+def cuda_ms(fn) -> float:
+    """Mean ms per call over a run of calls, by CUDA events, after a warm-up;
+    the run is sized to take about 0.2 s (3 to 200 calls)."""
+    import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = max(3, min(200, int(200.0 / max(start.elapsed_time(end), 1e-3))))
+    for _ in range(min(iters // 10, 20)):
+        fn()
     torch.cuda.synchronize()
     start.record()
     for _ in range(iters):
@@ -86,63 +145,212 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fns: dict) -> dict:
+    """Time each function twice, in turns (a, b, ..., ..., b, a), so that
+    drift within the call hits every one alike; returns every sample."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(cuda_ms(fns[name]))
+    return runs
+
+
+# --------------------------------------------------------------- bounds
+
+def _bound(n_bytes: int, ops: float, peak_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak_ops
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, ops)
+
+
+def attention_pairs(s: int, window: int) -> int:
+    """Causal (q, k) pairs of one head, within the window if there is one."""
+    if not window:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def flash_bound(bh, bkv, s, hd, window, elem_bytes=2):
+    """q and o, k and v once each; QK^T and PV over the pairs that the
+    causal window keeps, 2 flops per MAC, on bf16 tensor cores."""
+    n_bytes = (2 * bh + 2 * bkv) * s * hd * elem_bytes
+    return _bound(n_bytes, 4 * hd * attention_pairs(s, window) * bh,
+                  BF16_FLOP_PER_S)
+
+
+def rglru_bound(b, s, d, elem_bytes=4):
+    """a and x read and h_seq written (B, S, D), h0 read and h_last written
+    (B, D); a multiply and an add an element, in fp32."""
+    n_bytes = 2 * b * s * d * elem_bytes + b * s * d * 4 + 2 * b * d * 4
+    return _bound(n_bytes, 2 * b * s * d, FP32_FLOP_PER_S)
+
+
+def quant_bound(n, block, dequant=False):
+    """fp32 values, int8 codes and fp32 scales once each.  Quantize: |x|,
+    max, divide, round and clip an element; dequantize: one multiply."""
+    n_bytes = n * 4 + n + (n // block) * 4
+    return _bound(n_bytes, n * (1 if dequant else 5), FP32_FLOP_PER_S)
+
+
+# ---------------------------------------------------------------- build
+
 def phase_build(card_line):
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention, quantize, rglru
+    sources = [m.SOURCE for m in (flash_attention, rglru, quantize)]
     t0 = time.perf_counter()
-    lib = fa.build()
+    libs = build.build_all(sources)
     build_s = time.perf_counter() - t0
-    report = lib.with_name(f"{lib.stem}.ptxas.txt").read_text().splitlines()
-    emit("build", lib.exists(), card_line, build_s=build_s,
-         library=str(lib.relative_to(ROOT)),
-         ptxas=[ln.split(":", 1)[-1].strip() for ln in report
-                if "Function properties" in ln or "Used" in ln
-                or "spill" in ln])
+    ptxas = {}
+    for lib in libs:
+        report = build.ptxas_report(lib).read_text().splitlines()
+        ptxas[str(lib.relative_to(ROOT))] = [
+            ln.split(":", 1)[-1].strip() for ln in report
+            if "Function properties" in ln or "Used" in ln or "spill" in ln]
+    emit("build", all(lib.exists() for lib in libs), card_line,
+         build_s=build_s, ptxas=ptxas)
 
 
-def phase_kernels(card_line):
+# -------------------------------------------------------------- kernels
+
+def _randn(gen, *shape, dtype=None):
+    import torch
+    t = torch.randn(shape, generator=gen, device=DEV)
+    return t if dtype is None else t.to(dtype)
+
+
+def _check_flash(gen):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ref_flash_attention
-    gen = torch.Generator(device=DEV).manual_seed(0)
-
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
-
-    cases = []
-    for dt in ("float32", "bfloat16"):
-        cases += [(dt,) + c for c in SWEEP]
+    hy = HYBRID_FLASH_SHAPE
+    cases = [(dt,) + c for dt in ("float32", "bfloat16") for c in SWEEP]
     cases += [("float32", 2, 2, 384, 384, 64, True, 0),     # test_kernels.py:41
               ("bfloat16", 36, 12, 128, 128, 64, True, 0),  # serve, B=4 bf16
-              ("float32", 18, 6, 128, 128, 64, True, 0)]    # serve-parity fp32
+              ("float32", 18, 6, 128, 128, 64, True, 0),    # serve-parity fp32
+              ("bfloat16", hy["b"] * hy["h"], hy["b"] * hy["kv"], hy["s"],
+               hy["s"], hy["hd"], True, hy["window"]),      # serve-hybrid
+              ("float32", hy["h"], hy["kv"], HYBRID_PARITY_PROMPT,
+               HYBRID_PARITY_PROMPT, hy["hd"], True, hy["window"])]
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    bad = []
-    slice_err = None
+    bad, at_path = [], {}
     for dt, bh, bkv, sq, sk, hd, causal, window in cases:
         dtype = getattr(torch, dt)
-        q = randn(bh, sq, hd, dtype=dtype)
-        k = randn(bkv, sk, hd, dtype=dtype)
-        v = randn(bkv, sk, hd, dtype=dtype)
+        q = _randn(gen, bh, sq, hd, dtype=dtype)
+        k = _randn(gen, bkv, sk, hd, dtype=dtype)
+        v = _randn(gen, bkv, sk, hd, dtype=dtype)
         out = ops.flash_attention(q, k, v, causal, window)
         ref = ref_flash_attention(q, k, v, causal=causal, window=window)
         err = float((out.float() - ref.float()).abs().max())
         worst[dt] = max(worst[dt], err)
         if not err <= TOL[dt]:
-            bad.append([dt, bh, bkv, sq, sk, hd, causal, window, err])
-        if (bh, sq, dt) == (36, 128, "bfloat16"):
-            slice_err = err
-    q = randn(2, 128, 64, dtype=torch.float32)
-    k = randn(2, 128, 64, dtype=torch.float32)
+            bad.append(["flash", dt, bh, bkv, sq, sk, hd, causal, window, err])
+        if dt == "bfloat16" and (bh, sq) == (36, 128):
+            at_path["serve"] = err
+        if dt == "bfloat16" and window == hy["window"]:
+            at_path["serve-hybrid"] = err
+    q = _randn(gen, 2, 128, 64)
+    k = _randn(gen, 2, 128, 64)
     v = torch.full((2, 128, 64), 2.5, device=DEV)
     const_err = float((ops.flash_attention(q, k, v) - 2.5).abs().max())
     if not const_err <= 1e-5:                                # test_kernels.py:60
-        bad.append(["constant_v", const_err])
-    sync()
-    emit("kernels", not bad, card_line, cases=len(cases) + 1,
-         tolerance={**TOL, "constant_v": 1e-5},
-         worst={"flash_attention_fwd": {**worst, "constant_v": const_err}},
-         failures=bad)
-    return slice_err
+        bad.append(["flash", "constant_v", const_err])
+    return {**worst, "constant_v": const_err}, bad, at_path, len(cases) + 1
 
+
+def _check_rglru(gen):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_rglru
+
+    def inputs(b, s, d, dtype, a_scale=0.98):
+        a = (torch.sigmoid(_randn(gen, b, s, d)) * a_scale).to(dtype)
+        return a, (_randn(gen, b, s, d) * 0.1).to(dtype), _randn(gen, b, d)
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    bad, serve_err = [], None
+    cases = [(dt, b, s, d) for dt in ("float32", "bfloat16")
+             for b, s, d in RGLRU_SWEEP + [RGLRU_SHAPE]]
+    for dt, b, s, d in cases:
+        a, x, h0 = inputs(b, s, d, getattr(torch, dt))
+        hs, hl = ops.rglru(a, x, h0)
+        rs, rl = ref_rglru(a, x, h0)
+        err = max(float((hs - rs).abs().max()), float((hl - rl).abs().max()))
+        worst[dt] = max(worst[dt], err)
+        if not (err <= RGLRU_TOL[dt] and hs.dtype == hl.dtype == torch.float32):
+            bad.append(["rglru", dt, b, s, d, err])
+        if dt == "float32" and (b, s, d) == RGLRU_SHAPE:
+            serve_err = err
+    # linear in x with h0 = 0 (tests/test_kernels.py:104)
+    a, x1, _ = inputs(2, 256, 128, torch.float32, a_scale=0.95)
+    x2 = _randn(gen, 2, 256, 128) * 0.1
+    h0 = torch.zeros(2, 128, device=DEV)
+    lin_err = float((ops.rglru(a, x1, h0)[0] + ops.rglru(a, x2, h0)[0]
+                     - ops.rglru(a, x1 + x2, h0)[0]).abs().max())
+    if not lin_err <= 1e-4:
+        bad.append(["rglru", "linearity", lin_err])
+    return ({**worst, "linearity": lin_err}, bad, serve_err, len(cases) + 1)
+
+
+def _check_quant(gen):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_dequantize_int8, ref_quantize_int8
+    bad, worst = [], {"code_mismatches": 0, "scale_rel": 0.0, "dequant": 0.0}
+    errs = {}
+    for n, block in QUANT_SIZES + [(QUANT_N, QUANT_BLOCK)]:
+        x = _randn(gen, n) * 3
+        q, s = ops.quantize_int8(x, block=block)
+        rq, rs = ref_quantize_int8(x, block=block)
+        mism = int((q != rq).sum())
+        rel = float(((s - rs).abs() / rs).max())
+        deq = float((ops.dequantize_int8(q, s)
+                     - ref_dequantize_int8(rq, rs)).abs().max())
+        worst["code_mismatches"] += mism
+        worst["scale_rel"] = max(worst["scale_rel"], rel)
+        worst["dequant"] = max(worst["dequant"], deq)
+        if mism or not rel <= 1e-6 or not deq <= 1e-6 * float(rs.max()) * 127:
+            bad.append(["quant", n, block, mism, rel, deq])
+        if n == QUANT_N:
+            errs = {"quantize_int8": float((q.int() - rq.int()).abs().max()),
+                    "dequantize_int8": deq}
+    # half a step per block (test_kernels.py:63), for several magnitudes
+    for mag in (0.01, 1.0, 100.0):
+        x = _randn(gen, 16 * 256) * mag
+        q, s = ops.quantize_int8(x)
+        err = (ops.dequantize_int8(q, s) - x).abs().reshape(16, 256)
+        if not bool((err <= s[:, None] * 0.5 + 1e-6).all()):
+            bad.append(["quant", "half_step", mag])
+    # a fixed point after one round (test_kernels.py:77)
+    x1 = ops.dequantize_int8(*ops.quantize_int8(_randn(gen, 1024) * 2))
+    idem = float((ops.dequantize_int8(*ops.quantize_int8(x1)) - x1).abs().max())
+    if not idem <= 1e-5:
+        bad.append(["quant", "idempotence", idem])
+    return {**worst, "idempotence": idem}, bad, errs, len(QUANT_SIZES) + 5
+
+
+def phase_kernels(card_line):
+    """Returns each kernel's max abs error at its serving shape."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    flash_worst, flash_bad, flash_err, n_flash = _check_flash(gen)
+    rglru_worst, rglru_bad, rglru_err, n_rglru = _check_rglru(gen)
+    quant_worst, quant_bad, quant_errs, n_quant = _check_quant(gen)
+    sync()
+    bad = flash_bad + rglru_bad + quant_bad
+    emit("kernels", not bad, card_line, cases=n_flash + n_rglru + n_quant,
+         tolerance={"flash_attention_fwd": {**TOL, "constant_v": 1e-5},
+                    "rglru_scan": {**RGLRU_TOL, "linearity": 1e-4},
+                    "quantize_int8": {"codes": "exact", "scale_rtol": 1e-6,
+                                      "idempotence": 1e-5}},
+         worst={"flash_attention_fwd": flash_worst, "rglru_scan": rglru_worst,
+                "quantize_int8": quant_worst},
+         flash_err_at_path=flash_err, failures=bad)
+    return {"flash_attention_fwd": flash_err, "rglru_scan": rglru_err,
+            **quant_errs}
+
+
+# ------------------------------------------------------------- serving
 
 def _greedy_flips(gen_a, gen_b, logits, p):
     """Rows where two greedy streams differ.  A flip is tolerated only at a
@@ -160,168 +368,343 @@ def _greedy_flips(gen_a, gen_b, logits, p):
     return flips, bad
 
 
-def phase_serve_parity(card_line):
-    """The full-width stack with seeded random weights is chaotic: a 1e-7
-    relative change of the embedding moves the 30-layer last-token logits
-    by ~0.5 (PERF.md), so the end-to-end logits of two attention paths that
-    differ in the last bit cannot agree to 1e-3 at full depth.  The phase
-    therefore holds the flash path to the chunked one where that is
-    meaningful: block by block at full depth (each layer's block output
-    from the same input) and end to end at a 2-layer cut of the same
-    widths.  The full-depth difference is printed beside its noise floor."""
+def _backends(kernels: bool) -> None:
+    from repro_torch.models import attention as att
+    from repro_torch.models import rglru as rg
+    att.set_attention_backend("flash" if kernels else "chunked")
+    rg.set_recurrence_backend("kernel" if kernels else "scan")
+
+
+def _block_diffs(cfg, params, tokens, max_seq, policy):
+    """Every block of the stack, each from the same input, through the
+    kernel path and the plain path; the plain output feeds the next."""
+    import torch
+    from repro_torch.models import model as lm
+    prefix, unit, n_units, tail = lm.stack_plan(cfg)
+    blocks = ([(k, lm._layer(params["units"], li)[f"b{i}"])
+               for li in range(n_units) for i, k in enumerate(unit)]
+              + list(zip(tail, params["tail"])))
+    b, p = tokens.shape
+    positions = torch.arange(p, device=tokens.device)[None].expand(b, p)
+    x = lm._embed_in(cfg, params, tokens, {}, policy)
+    diffs = {}
+    for kind, bp in blocks:
+        y = {}
+        for kernels in (True, False):
+            _backends(kernels)
+            y[kernels], _ = lm.prefill_block(cfg, kind, bp, x, positions,
+                                             max_seq, policy)
+        _backends(False)
+        diffs.setdefault(kind, []).append(
+            float((y[True] - y[False]).abs().max()))
+        x = y[False]
+    return {"blocks": {kind: len(d) for kind, d in diffs.items()},
+            "block_max_abs_diff": {kind: max(d) for kind, d in diffs.items()}}
+
+
+def _parity(arch, b, p, n_new, cut_layers):
+    """The kernel paths (flash attention, the RG-LRU kernel) against the
+    plain ones (chunked attention, the plain scan) on a full-width stack
+    with seeded random weights, in fp32.
+
+    Such a stack can be chaotic: for smollm-135m a 1e-7 relative change of
+    the embedding moves the 30-layer last-token logits by ~0.5 (PERF.md),
+    so end-to-end logits of two paths that differ in the last bit need not
+    agree at full depth.  They are held to each other block by block at
+    full depth (each block's output from the same input) and end to end at
+    a depth cut of the same widths; the full-depth difference is reported
+    beside its noise floor."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import ops
-    from repro_torch.models import attention as att
     from repro_torch.models import model as lm
     from repro_torch.models.layers import Policy
-    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.params import init_params
     from repro_torch.serve.engine import ServeEngine
 
     fp32 = Policy(compute=torch.float32)
-    b, p, n_new = 2, 128, 8
     max_seq = p + n_new + 8
     prompts = np.random.default_rng(0).integers(
-        0, ARCHS[ARCH].vocab_size, (b, p)).astype(np.int32)
+        0, ARCHS[arch].vocab_size, (b, p)).astype(np.int32)
     tokens = torch.as_tensor(prompts, dtype=torch.long, device=DEV)
 
     def model(n_layers):
-        cfg = dataclasses.replace(ARCHS[ARCH], n_layers=n_layers)
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers)
         params = init_params(lm.lm_param_defs(cfg, max_seq),
                              torch.Generator(device=DEV).manual_seed(0), DEV)
         return cfg, params
 
-    def prefill(cfg, params, backend):
-        att.set_attention_backend(backend)
+    def prefill(cfg, params, kernels):
+        _backends(kernels)
         try:
             return lm.lm_prefill(cfg, params, tokens, {}, max_seq, fp32)[0]
         finally:
-            att.set_attention_backend("chunked")
+            _backends(False)
 
     out = {}
     with torch.inference_mode():
-        cfg, params = model(ARCHS[ARCH].n_layers)
+        cfg, params = model(ARCHS[arch].n_layers)
         ops.reset_launch_counts()
-        full_flash = prefill(cfg, params, "flash")
+        full_kernels = prefill(cfg, params, True)
         sync()
-        out["prefill_launches"] = ops.FLASH_LAUNCHES
-        full_chunked = prefill(cfg, params, "chunked")
+        out["prefill_launches"] = {"flash": ops.FLASH_LAUNCHES,
+                                   "rglru": ops.RGLRU_LAUNCHES}
+        full_plain = prefill(cfg, params, False)
         out["full_depth_logits_diff"] = float(
-            (full_flash - full_chunked).abs().max())
+            (full_kernels - full_plain).abs().max())
         params["embed"]["embedding"].mul_(1 + 1e-7)
         out["full_depth_noise_floor"] = float(
-            (prefill(cfg, params, "chunked") - full_chunked).abs().max())
+            (prefill(cfg, params, False) - full_plain).abs().max())
         params["embed"]["embedding"].div_(1 + 1e-7)
-        out["logits_finite"] = bool(torch.isfinite(full_flash).all())
+        out["logits_finite"] = bool(torch.isfinite(full_kernels).all())
+        del full_kernels, full_plain
 
-        # block by block: the same input through both attention paths
-        positions = torch.arange(p, device=DEV)[None].expand(b, p)
-        x = lm._embed_in(cfg, params, tokens, {}, fp32)
-        block_diffs = []
-        for li in range(cfg.n_layers):
-            unit = tree_map(lambda t: t[li], params["units"])["b0"]
-            y = {}
-            for backend in ("flash", "chunked"):
-                att.set_attention_backend(backend)
-                y[backend], _ = lm.prefill_block(cfg, "attn", unit, x,
-                                                 positions, max_seq, fp32)
-            att.set_attention_backend("chunked")
-            block_diffs.append(float((y["flash"] - y["chunked"]).abs().max()))
-            x = y["chunked"]
-        out["block_max_abs_diff"] = max(block_diffs)
-        del params, full_flash, full_chunked, x, y
+        out.update(_block_diffs(cfg, params, tokens, max_seq, fp32))
+        del params
+        free()
 
-        # end to end at a 2-layer cut: logits and greedy tokens
-        cfg2, params2 = model(CUT_LAYERS)
-        out["cut2_logits_diff"] = float(
-            (prefill(cfg2, params2, "flash")
-             - prefill(cfg2, params2, "chunked")).abs().max())
-        eng = ServeEngine(cfg2, params2, max_seq=max_seq, policy=fp32,
+        # end to end at a depth cut: logits and greedy tokens
+        cfg_cut, params_cut = model(cut_layers)
+        out["cut_logits_diff"] = float(
+            (prefill(cfg_cut, params_cut, True)
+             - prefill(cfg_cut, params_cut, False)).abs().max())
+        eng = ServeEngine(cfg_cut, params_cut, max_seq=max_seq, policy=fp32,
                           device=DEV)
         gen = {}
-        for backend in ("flash", "chunked"):
-            att.set_attention_backend(backend)
-            gen[backend] = eng.generate(prompts, n_new).tokens
-        att.set_attention_backend("chunked")
-        seq = torch.as_tensor(np.concatenate([prompts, gen["flash"]], axis=1),
+        for kernels in (True, False):
+            _backends(kernels)
+            gen[kernels] = eng.generate(prompts, n_new).tokens
+        _backends(False)
+        seq = torch.as_tensor(np.concatenate([prompts, gen[True]], axis=1),
                               dtype=torch.long, device=DEV)
-        logits = lm.lm_forward(cfg2, params2, {"tokens": seq}, fp32)[0]
-        flips, bad = _greedy_flips(gen["flash"], gen["chunked"],
-                                   logits.float().cpu().numpy(), p)
-    ok = (out["prefill_launches"] == cfg.n_layers and out["logits_finite"]
-          and out["block_max_abs_diff"] <= 1e-3
-          and out["cut2_logits_diff"] <= 1e-3 and not bad)
-    emit("serve-parity", ok, card_line, arch=ARCH, dtype="float32",
-         batch=b, prompt=p, new_tokens=n_new, tolerance=1e-3, **out,
-         cut2_tie_flips=flips, cut2_bad_flips=bad,
-         cut2_tokens_flash=gen["flash"].tolist())
+        logits = lm.lm_forward(cfg_cut, params_cut, {"tokens": seq}, fp32)[0]
+        flips, bad = _greedy_flips(gen[True], gen[False],
+                                   logits[:, p - 1:].float().cpu().numpy(), 1)
+    out["cut_tie_flips"], out["cut_bad_flips"] = flips, bad
+    out["cut_tokens_kernels"] = gen[True].tolist()
+    ok = (out["logits_finite"]
+          and max(out["block_max_abs_diff"].values()) <= PARITY_TOL
+          and out["cut_logits_diff"] <= PARITY_TOL and not bad)
+    return ok, cfg, out
+
+
+def phase_serve_parity(card_line):
+    ok, cfg, out = _parity(ARCH, 2, 128, 8, CUT_LAYERS)
+    ok = ok and out["prefill_launches"] == {"flash": cfg.n_layers, "rglru": 0}
+    emit("serve-parity", ok, card_line, arch=ARCH, dtype="float32", batch=2,
+         prompt=128, new_tokens=8, cut_layers=CUT_LAYERS,
+         tolerance=PARITY_TOL, **out)
+
+
+def phase_serve_parity_hybrid(card_line):
+    free_and_reset_peak()
+    ok, cfg, out = _parity(HYBRID, 1, HYBRID_PARITY_PROMPT, 8,
+                           HYBRID_CUT_LAYERS)
+    kinds = cfg.layer_kinds()
+    want = {"flash": kinds.count("local_attn"), "rglru": kinds.count("rglru")}
+    ok = ok and out["prefill_launches"] == want
+    emit("serve-parity-hybrid", ok, card_line, arch=HYBRID, dtype="float32",
+         batch=1, prompt=HYBRID_PARITY_PROMPT, new_tokens=8,
+         cut_layers=HYBRID_CUT_LAYERS, tolerance=PARITY_TOL,
+         expected_launches=want, peak_bytes=peak_bytes(), **out)
+
+
+def _serve(arch, batch, prompt, new_tokens):
+    """One round of the serving CLI, with every count set to 0 just before
+    and read just after it."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launch_counts()                   # the main path starts here
+    rows = serve.main(["--arch", arch, "--batch", str(batch),
+                       "--prompt-len", str(prompt),
+                       "--new-tokens", str(new_tokens)])
+    counts = {"flash_attention_fwd": ops.FLASH_LAUNCHES,   # ... and ends here
+              "rglru_scan": ops.RGLRU_LAUNCHES,
+              "quantize_int8": ops.QUANT_LAUNCHES,
+              "dequantize_int8": ops.DEQUANT_LAUNCHES}
+    return rows[-1], counts
 
 
 def phase_serve(card_line):
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-    ops.reset_launch_counts()                   # the main path starts here
-    rows = serve.main(["--arch", ARCH, "--batch", "4",
-                       "--prompt-len", "128", "--new-tokens", "32"])
-    launches = ops.FLASH_LAUNCHES              # ... and ends here
-    row = rows[-1]
+    row, counts = _serve(ARCH, 4, 128, 32)
     n_layers = get_arch(ARCH).n_layers        # one launch per layer
-    ok = (launches == n_layers and row["flash_launches"] == n_layers
+    ok = (counts["flash_attention_fwd"] == n_layers
+          and row["flash_launches"] == n_layers
           and row["prefill_s"] > 0 and row["decode_s"] > 0)
     emit("serve", ok, card_line, arch=ARCH, batch=4, prompt_len=128,
          new_tokens=32, dtype="bfloat16", prefill_s=row["prefill_s"],
          decode_s=row["decode_s"], tok_per_s=row["tok_per_s"],
-         flash_launches=launches)
-    return launches
+         flash_launches=counts["flash_attention_fwd"], launches=counts)
+    return counts
 
 
-def phase_timing(card_line):
+def phase_serve_hybrid(card_line):
+    from repro_torch.configs import get_arch
+    free_and_reset_peak()
+    hs = HYBRID_SERVE
+    row, counts = _serve(HYBRID, hs["batch"], hs["prompt"], hs["new_tokens"])
+    kinds = get_arch(HYBRID).layer_kinds()
+    want = {"flash_attention_fwd": kinds.count("local_attn"),   # 12
+            "rglru_scan": kinds.count("rglru"),                 # 26
+            "quantize_int8": 0, "dequantize_int8": 0}
+    ok = (counts == want and row["flash_launches"] == want["flash_attention_fwd"]
+          and row["rglru_launches"] == want["rglru_scan"]
+          and row["prefill_s"] > 0 and row["decode_s"] > 0)
+    emit("serve-hybrid", ok, card_line, arch=HYBRID, batch=hs["batch"],
+         prompt_len=hs["prompt"], new_tokens=hs["new_tokens"],
+         dtype="bfloat16", prefill_s=row["prefill_s"],
+         decode_s=row["decode_s"], tok_per_s=row["tok_per_s"],
+         launches=counts, expected_launches=want, peak_bytes=peak_bytes())
+    return counts
+
+
+# -------------------------------------------------------------- timing
+
+def _time_flash(gen, b, h, kv, s, hd, window):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import ref_flash_attention
-    b, h, kv, s, hd = (SLICE_SHAPE[k] for k in ("b", "h", "kv", "s", "hd"))
-    gen = torch.Generator(device=DEV).manual_seed(1)
-    q = torch.randn((b * h, s, hd), generator=gen, device=DEV).bfloat16()
-    k = torch.randn((b * kv, s, hd), generator=gen, device=DEV).bfloat16()
-    v = torch.randn((b * kv, s, hd), generator=gen, device=DEV).bfloat16()
-
-    def kernel():
-        return fa.flash_attention_fwd(q, k, v, causal=True)
-
-    def plain():
-        return ref_flash_attention(q, k, v, causal=True)
+    q = _randn(gen, b * h, s, hd, dtype=torch.bfloat16)
+    k = _randn(gen, b * kv, s, hd, dtype=torch.bfloat16)
+    v = _randn(gen, b * kv, s, hd, dtype=torch.bfloat16)
+    pos = torch.arange(s, device=DEV)
+    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
 
     def library():
-        return F.scaled_dot_product_attention(
-            q.view(b, h, s, hd), k.view(b, kv, s, hd), v.view(b, kv, s, hd),
-            is_causal=True, enable_gqa=True)
+        if not window:
+            return F.scaled_dot_product_attention(
+                q.view(b, h, s, hd), k.view(b, kv, s, hd),
+                v.view(b, kv, s, hd), is_causal=True, enable_gqa=True)
+        # kv heads broadcast to the q heads (a view for kv = 1), so that the
+        # kernels that take a mask may run
+        kx, vx = (t.view(b, kv, 1, s, hd).expand(b, kv, h // kv, s, hd)
+                  .reshape(b, h, s, hd) for t in (k, v))
+        return F.scaled_dot_product_attention(q.view(b, h, s, hd), kx, vx,
+                                              attn_mask=mask)
 
+    fns = {"plain": lambda: ref_flash_attention(q, k, v, causal=True,
+                                                window=window),
+           "kernel": lambda: fa.flash_attention_fwd(q, k, v, causal=True,
+                                                    window=window),
+           "library": library}
     lib_err = float((library().reshape(b * h, s, hd).float()
-                     - kernel().float()).abs().max())
-    # plain, kernel, kernel, plain: compare within one call, in turns
-    t = {"plain": [], "kernel": [], "library": []}
-    for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
-        t[name].append(cuda_ms({"plain": plain, "kernel": kernel,
-                                "library": library}[name]))
-    ms = {name: min(v) for name, v in t.items()}
-    n_bytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
-    pairs = s * (s + 1) // 2                   # causal (q, k) pairs per head
-    flops = 4 * hd * pairs * b * h             # QK^T and PV, 2 flop per MAC
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
-    bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
-                else "operations")
-    emit("timing", lib_err <= TOL["bfloat16"], card_line,
-         shape={"q": [b * h, s, hd], "kv": [b * kv, s, hd], "dtype": "bfloat16",
-                "causal": True},
-         kernel_ms=ms["kernel"], ref_ms=ms["plain"], library_ms=ms["library"],
-         runs_ms=t, bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
-         flops=flops, library_vs_kernel_max_abs_err=lib_err)
-    return ms, bound_ms, bound_by
+                     - fns["kernel"]().float()).abs().max())
+    return fns, flash_bound(b * h, b * kv, s, hd, window), lib_err
+
+
+def _time_rglru(gen):
+    import torch
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels.ref import ref_rglru
+    b, s, d = RGLRU_SHAPE
+    a = torch.sigmoid(_randn(gen, b, s, d)) * 0.98
+    x = _randn(gen, b, s, d) * 0.1
+    h0 = _randn(gen, b, d)
+    fns = {"plain": lambda: ref_rglru(a, x, h0),
+           "kernel": lambda: rg.rglru_scan(a, x, h0)}
+    return fns, rglru_bound(b, s, d), None
+
+
+def _time_quant(gen, dequant):
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels.ref import ref_dequantize_int8, ref_quantize_int8
+    x = _randn(gen, QUANT_N)
+    if dequant:
+        q, s = ref_quantize_int8(x, block=QUANT_BLOCK)
+        fns = {"plain": lambda: ref_dequantize_int8(q, s),
+               "kernel": lambda: qk.dequantize_int8(q, s)}
+    else:
+        fns = {"plain": lambda: ref_quantize_int8(x, block=QUANT_BLOCK),
+               "kernel": lambda: qk.quantize_int8(x, block=QUANT_BLOCK)}
+    return fns, quant_bound(QUANT_N, QUANT_BLOCK, dequant), None
+
+
+def phase_timing(card_line):
+    """Each kernel at its serving shape: its time, its plain version's, a
+    PyTorch call's where one computes the same function (SDPA for flash
+    attention; none exists for a linear recurrence or for this blockwise
+    int8 code), and the card's bound.  Returns them by kernel and shape."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    hy = HYBRID_FLASH_SHAPE
+    sm = SLICE_SHAPE
+    jobs = {
+        ("flash_attention_fwd", "serve"): lambda: _time_flash(
+            gen, sm["b"], sm["h"], sm["kv"], sm["s"], sm["hd"], 0),
+        ("flash_attention_fwd", "serve-hybrid"): lambda: _time_flash(
+            gen, hy["b"], hy["h"], hy["kv"], hy["s"], hy["hd"], hy["window"]),
+        ("rglru_scan", "serve-hybrid"): lambda: _time_rglru(gen),
+        ("quantize_int8", "none"): lambda: _time_quant(gen, False),
+        ("dequantize_int8", "none"): lambda: _time_quant(gen, True),
+    }
+    rows, ok = {}, True
+    for key, job in jobs.items():
+        fns, (bound_ms, bound_by, n_bytes, ops), lib_err = job()
+        runs = in_turns(fns)
+        rows[key] = {"ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+                     "library_ms": min(runs["library"]) if "library" in runs
+                     else None, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": n_bytes, "ops": ops, "runs_ms": runs,
+                     "library_vs_kernel_max_abs_err": lib_err}
+        ok = ok and (lib_err is None or lib_err <= TOL["bfloat16"])
+        del fns
+    emit("timing", ok, card_line,
+         shapes={"flash_attention_fwd/serve": {
+                     "q": [sm["b"] * sm["h"], sm["s"], sm["hd"]],
+                     "kv": [sm["b"] * sm["kv"], sm["s"], sm["hd"]],
+                     "dtype": "bfloat16", "causal": True},
+                 "flash_attention_fwd/serve-hybrid": {
+                     "q": [hy["b"] * hy["h"], hy["s"], hy["hd"]],
+                     "kv": [hy["b"] * hy["kv"], hy["s"], hy["hd"]],
+                     "dtype": "bfloat16", "causal": True,
+                     "window": hy["window"]},
+                 "rglru_scan": {"a,x": list(RGLRU_SHAPE), "dtype": "float32"},
+                 "quantize_int8": {"n": QUANT_N, "block": QUANT_BLOCK}},
+         kernels={f"{k}/{shape}": row for (k, shape), row in rows.items()})
+    return rows
+
+
+# ---------------------------------------------------------------- main
+
+_KERNELS = {
+    "flash_attention_fwd": ("flash_attention_fwd.cu",
+                            "src/repro/kernels/flash_attention.py:28"),
+    "rglru_scan": ("rglru_scan.cu", "src/repro/kernels/rglru.py:21"),
+    "quantize_int8": ("quantize_int8.cu", "src/repro/kernels/quantize.py:17"),
+    "dequantize_int8": ("quantize_int8.cu",
+                        "src/repro/kernels/quantize.py:25"),
+}
+
+
+def kernels_line(errs, counts_by_path, timing) -> dict:
+    """One entry per kernel.  Flash attention runs on both serving paths:
+    its launches are their sum, its numbers those of the hybrid path's
+    shape (where its time goes), and ``at_shapes`` holds both shapes."""
+    entries = []
+    for name, (src, replaces) in _KERNELS.items():
+        by_path = {path: counts[name] for path, counts in counts_by_path.items()}
+        shapes = {shape: row for (k, shape), row in timing.items() if k == name}
+        main = shapes.get("serve-hybrid") or shapes["none"]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{src}",
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, "max_abs_err": errs[name],
+                 **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
+        if name == "flash_attention_fwd":
+            entry["max_abs_err"] = max(errs[name].values())
+            entry["at_shapes"] = {
+                shape: {"max_abs_err": errs[name][shape],
+                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}}
+                for shape, row in shapes.items()}
+        entries.append(entry)
+    return {"kernels": entries}
 
 
 def main() -> int:
@@ -345,20 +728,17 @@ def main() -> int:
     card_line = card()
     try:
         phase_build(card_line)
-        slice_err = phase_kernels(card_line)
+        errs = phase_kernels(card_line)
         phase_serve_parity(card_line)
-        launches = phase_serve(card_line)
-        ms, bound_ms, bound_by = phase_timing(card_line)
+        counts = {"serve": phase_serve(card_line)}
+        phase_serve_parity_hybrid(card_line)
+        counts["serve-hybrid"] = phase_serve_hybrid(card_line)
+        free_and_reset_peak()
+        timing = phase_timing(card_line)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": launches, "max_abs_err": slice_err,
-        "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": ms["library"]}]}))
+    print(json.dumps(kernels_line(errs, counts, timing)))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,72 +3,33 @@ kernel in ``csrc/flash_attention_fwd.cu`` (twin of
 ``repro.kernels.flash_attention``; the source's header says what bounds it
 and how it is laid out).
 
-The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``build/repro_torch_kernels/`` under the checkout, and loaded with
+The library is built by ``kernels/build.py`` at first use and loaded with
 ``ctypes``.  Nothing is compiled or loaded when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import build as _build
+
+SOURCE = _build.CSRC / "flash_attention_fwd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 _lib = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
-                           "the flash-attention kernel cannot be built")
-    return path
-
-
-def build() -> Path:
-    """Compile the kernel library once per source digest; returns its path.
-    ptxas's report (registers, shared memory, spills) is kept beside it."""
-    digest = hashlib.blake2b(SOURCE.read_bytes(), digest_size=8).hexdigest()
-    out = BUILD_DIR / f"libflash_attention_fwd-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building "
-                           f"{SOURCE.name}:\n{proc.stderr}")
-    out.with_name(f"{out.stem}.ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fa_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                               ctypes.c_float, ci, ci, vp]
-        lib.fa_fwd.restype = ci
-        lib.fa_block_q.argtypes = []
-        lib.fa_block_q.restype = ci
-        lib.fa_block_k.argtypes = [ci]
-        lib.fa_block_k.restype = ci
-        lib.fa_error_string.argtypes = [ci]
-        lib.fa_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _build.load(SOURCE, {
+            "fa_fwd": ([vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                        ctypes.c_float, ci, ci, vp], ci),
+            "fa_block_q": ([], ci),
+            "fa_block_k": ([ci], ci),
+            "fa_error_string": ([ci], ctypes.c_char_p)})
     return _lib
 
 

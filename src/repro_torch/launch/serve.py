@@ -7,8 +7,12 @@ On CUDA it selects the "flash" attention backend: the hand-written kernel
 is the reference's serving/prefill fast path (``repro.kernels.ops``), and
 without it every prompt would go through the chunked plain-torch path.
 The kernel takes prompts whose length is a multiple of 128; other lengths
-go to the chunked path, as in the reference.  After each round it prints
-how many times the flash kernel was launched.
+go to the chunked path, as in the reference.  On CUDA it also selects the
+"kernel" recurrence backend for the RG-LRU blocks (recurrentgemma): the
+reference's model always runs its plain associative scan and calls the
+recurrence kernel from nowhere, so without the switch the hand-written
+kernel would never serve a request.  After each round it prints how many
+times the flash and the RG-LRU kernels were launched.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.attention import set_attention_backend
 from repro_torch.models.params import init_params
+from repro_torch.models.rglru import set_recurrence_backend
 from repro_torch.models.registry import get_api
 from repro_torch.serve.engine import ServeEngine
 
@@ -42,6 +47,7 @@ def main(argv=None) -> list:
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         set_attention_backend("flash")
+        set_recurrence_backend("kernel")
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduce_for_smoke(cfg)
@@ -66,7 +72,8 @@ def main(argv=None) -> list:
                            args.new_tokens, extras=extras)
         row = {"round": r, "prefill_s": res.prefill_s,
                "decode_s": res.decode_s, "tok_per_s": res.tokens_per_s,
-               "flash_launches": ops.FLASH_LAUNCHES}
+               "flash_launches": ops.FLASH_LAUNCHES,
+               "rglru_launches": ops.RGLRU_LAUNCHES}
         print(json.dumps(row))
         rows.append(row)
     return rows

@@ -98,9 +98,10 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
     kvh = k.shape[2]
     if _BACKEND == "flash" and _flash_ok(q, k, v, q_positions, causal):
         from repro_torch.kernels import ops as kops
-        qt = q.transpose(1, 2).reshape(b * h, sq, hd)
-        kt = k.transpose(1, 2).reshape(b * kvh, k.shape[1], hd)
-        vt = v.transpose(1, 2).reshape(b * kvh, v.shape[1], hd)
+        # contiguous: at B=1 the reshape alone returns a strided view
+        qt = q.transpose(1, 2).contiguous().view(b * h, sq, hd)
+        kt = k.transpose(1, 2).contiguous().view(b * kvh, k.shape[1], hd)
+        vt = v.transpose(1, 2).contiguous().view(b * kvh, v.shape[1], hd)
         ot = kops.flash_attention(qt, kt, vt, causal, window)
         return ot.reshape(b, h, sq, hd).transpose(1, 2)
 

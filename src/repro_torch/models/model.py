@@ -1,5 +1,6 @@
 """Generic LM composition (torch twin of ``repro.models.model``), for the
-"attn" block kind: the dense decoder stacks.
+"attn", "local_attn" and "rglru" block kinds: the dense decoder stacks and
+the RG-LRU + local-attention hybrid (recurrentgemma).
 
 Every arch is expressed as prefix blocks (list) + a repeated unit (params
 stacked along a leading L dim) + tail.  The reference scans the stacked
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as att
+from repro_torch.models import rglru as rg
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
                                        apply_norm, embed_defs, embed_tokens,
                                        lm_logits, mlp_defs, norm_defs)
@@ -24,8 +26,6 @@ from repro_torch.models.params import stack_defs, tree_map
 #: Block kinds of the other families, and the ROADMAP.md item that ports them.
 _NOT_PORTED = {
     "moe": "Queue 1, other families (models/moe.py)",
-    "local_attn": "Queue 1, other families (recurrentgemma)",
-    "rglru": "Queue 1, other families (models/rglru.py)",
     "mlstm": "Queue 1, other families (models/xlstm.py)",
     "slstm": "Queue 1, other families (models/xlstm.py)",
 }
@@ -36,7 +36,7 @@ def _check_kind(cfg: ArchConfig, kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: ROADMAP.md, "
             f"{_NOT_PORTED[kind]}")
-    if kind != "attn":
+    if kind not in ("attn", "local_attn", "rglru"):
         raise KeyError(kind)
     if cfg.mla is not None:
         raise NotImplementedError(
@@ -63,33 +63,53 @@ def stack_plan(cfg: ArchConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...], int,
 
 
 # --------------------------------------------------------------------------
-# Block dispatch ("attn" kind)
+# Block dispatch
 # --------------------------------------------------------------------------
+
+def _window(cfg, kind) -> int:
+    return cfg.window if kind == "local_attn" else 0
+
 
 def block_defs(cfg: ArchConfig, kind: str):
     _check_kind(cfg, kind)
+    if kind == "rglru":
+        return rg.rglru_defs(cfg)
     return {"ln1": norm_defs(cfg), "attn": att.attn_defs(cfg),
             "ln2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
 
 
 def apply_block(cfg, kind, p, x, positions, policy=DEFAULT_POLICY):
-    """Training/prefill-style full-sequence block.  Returns (x, aux, cache)."""
+    """Training/prefill-style full-sequence block.  Returns (x, aux, cache);
+    the cache is the recurrent carry state, None for attention kinds."""
     _check_kind(cfg, kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rglru":
+        x, state = rg.rglru_apply(cfg, p, x, policy)
+        return x, aux, state
     h = apply_norm(cfg, p["ln1"], x, policy)
-    x = x + att.attn_forward(cfg, p["attn"], h, positions, policy=policy)
+    x = x + att.attn_forward(cfg, p["attn"], h, positions,
+                             window=_window(cfg, kind), policy=policy)
     h = apply_norm(cfg, p["ln2"], x, policy)
     x = x + apply_mlp(cfg, p["mlp"], h, policy)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), None
+    return x, aux, None
 
 
 def block_cache_defs(cfg, kind, batch: int, max_seq: int):
     _check_kind(cfg, kind)
-    return att.kv_cache_defs(cfg, batch, max_seq)
+    if kind == "rglru":
+        return rg.rglru_state_defs(cfg, batch)
+    return att.kv_cache_defs(cfg, batch, max_seq)   # window-clipped inside
 
 
 def decode_block(cfg, kind, p, x, cache, pos, policy=DEFAULT_POLICY):
-    """One-token decode.  Returns (x, cache); the cache is updated in place."""
+    """One-token decode.  Returns (x, cache); the cache is updated in place
+    (an rglru block's new state is copied into its buffers)."""
     _check_kind(cfg, kind)
+    if kind == "rglru":
+        x, state = rg.rglru_decode(cfg, p, x, cache, policy)
+        for key, t in state.items():
+            cache[key].copy_(t)
+        return x, cache
     h = apply_norm(cfg, p["ln1"], x, policy)
     a, cache = att.attn_decode(cfg, p["attn"], h, cache, pos, policy=policy)
     x = x + a
@@ -101,9 +121,13 @@ def prefill_block(cfg, kind, p, x, positions, max_cache: int,
                   policy=DEFAULT_POLICY):
     """Full-sequence block that also materializes its decode cache."""
     _check_kind(cfg, kind)
+    if kind == "rglru":
+        # the full apply already returns the carry state = decode cache
+        x, _, cache = apply_block(cfg, kind, p, x, positions, policy)
+        return x, cache
     h = apply_norm(cfg, p["ln1"], x, policy)
     a, cache = att.attn_prefill(cfg, p["attn"], h, positions, max_cache,
-                                policy=policy)
+                                window=_window(cfg, kind), policy=policy)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x, policy)
     return x + apply_mlp(cfg, p["mlp"], h, policy), cache

@@ -1,8 +1,8 @@
 """chip_smoke.py without a card: it refuses to run and prints no result,
-and its phases, driven on the CPU with the kernel replaced by a counting
-plain version and the model narrowed to smoke widths (head_dim 64, so
-prefill takes the flash path), pass.  The kernel itself is only checked
-on the card, by chip_smoke.py's kernels phase."""
+and its phases, driven on the CPU with every kernel replaced by a counting
+plain version and both models narrowed to smoke widths (head_dim 64, so
+prefill takes the flash path), pass.  The kernels themselves are only
+checked on the card, by chip_smoke.py's kernels phase."""
 import dataclasses
 import importlib.util
 import json
@@ -17,9 +17,13 @@ import pytest
 from repro_torch.configs import ARCHS, reduce_for_smoke
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ref_flash_attention
+from repro_torch.kernels import quantize as qk
+from repro_torch.kernels import rglru as rk
+from repro_torch.kernels.ref import (ref_dequantize_int8, ref_flash_attention,
+                                     ref_quantize_int8, ref_rglru)
 from repro_torch.launch import serve
 from repro_torch.models.attention import set_attention_backend
+from repro_torch.models.rglru import set_recurrence_backend
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -39,6 +43,13 @@ def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
     assert proc.returncode != 0 and proc.stdout == "", proc.stdout
 
 
+def _counting(counter, plain):
+    def fn(*args, **kwargs):
+        setattr(ops, counter, getattr(ops, counter) + 1)
+        return plain(*args, **kwargs)
+    return fn
+
+
 @pytest.fixture
 def smoke(monkeypatch):
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -48,23 +59,44 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "DEV", "cpu")
     tiny = dataclasses.replace(reduce_for_smoke(ARCHS["smollm-135m"]),
                                name="smoke-hd64", head_dim=64, n_layers=3)
-    monkeypatch.setitem(ARCHS, tiny.name, tiny)
+    hybrid = dataclasses.replace(reduce_for_smoke(ARCHS["recurrentgemma-9b"]),
+                                 name="smoke-hybrid-hd64", head_dim=64,
+                                 window=64)
+    for cfg in (tiny, hybrid):
+        monkeypatch.setitem(ARCHS, cfg.name, cfg)
     monkeypatch.setattr(mod, "ARCH", tiny.name)
+    monkeypatch.setattr(mod, "HYBRID", hybrid.name)
+    monkeypatch.setattr(mod, "HYBRID_PARITY_PROMPT", 128)
+    monkeypatch.setattr(mod, "HYBRID_SERVE",
+                        dict(batch=2, prompt=128, new_tokens=4))
+    monkeypatch.setattr(mod, "HYBRID_FLASH_SHAPE",
+                        dict(b=2, h=4, kv=1, s=128, hd=64, window=64))
+    monkeypatch.setattr(mod, "RGLRU_SHAPE", (2, 128, 64))
+    monkeypatch.setattr(mod, "QUANT_N", 4096)
     monkeypatch.setattr(mod, "cuda_ms", lambda fn: (fn(), 1.0)[1])
 
-    def counting(q, k, v, causal=True, window=0):
-        ops.FLASH_LAUNCHES += 1
+    def flash(q, k, v, causal=True, window=0):
         return ref_flash_attention(q, k, v, causal=causal, window=window)
 
-    monkeypatch.setattr(ops, "flash_attention", counting)
+    monkeypatch.setattr(ops, "flash_attention",
+                        _counting("FLASH_LAUNCHES", flash))
+    monkeypatch.setattr(ops, "rglru", _counting("RGLRU_LAUNCHES", ref_rglru))
+    monkeypatch.setattr(ops, "quantize_int8",
+                        _counting("QUANT_LAUNCHES", ref_quantize_int8))
+    monkeypatch.setattr(ops, "dequantize_int8",
+                        _counting("DEQUANT_LAUNCHES", ref_dequantize_int8))
     monkeypatch.setattr(
         fa, "flash_attention_fwd",
         lambda q, k, v, *, causal=True, window=0, scale=None:
         ref_flash_attention(q, k, v, causal=causal, window=window))
+    monkeypatch.setattr(rk, "rglru_scan", ref_rglru)
+    monkeypatch.setattr(qk, "quantize_int8", ref_quantize_int8)
+    monkeypatch.setattr(qk, "dequantize_int8", ref_dequantize_int8)
     main = serve.main
 
     def main_on_cpu(argv):
         set_attention_backend("flash")      # what main() selects on CUDA
+        set_recurrence_backend("kernel")
         return main(argv + ["--device", "cpu"])
 
     monkeypatch.setattr(serve, "main", main_on_cpu)
@@ -72,19 +104,58 @@ def smoke(monkeypatch):
         yield mod
     finally:
         set_attention_backend("chunked")
+        set_recurrence_backend("scan")
 
 
 def test_chip_smoke_phases_on_cpu(smoke, capsys):
     card = "cpu rehearsal, 0 W"
-    assert smoke.phase_kernels(card) == 0.0
+    errs = smoke.phase_kernels(card)
+    assert errs == {"flash_attention_fwd": {"serve": 0.0, "serve-hybrid": 0.0},
+                    "rglru_scan": 0.0, "quantize_int8": 0.0,
+                    "dequantize_int8": 0.0}
     smoke.phase_serve_parity(card)
-    assert smoke.phase_serve(card) == 3           # one launch per layer
-    _, bound_ms, bound_by = smoke.phase_timing(card)
+    counts = {"serve": smoke.phase_serve(card)}
+    smoke.phase_serve_parity_hybrid(card)
+    counts["serve-hybrid"] = smoke.phase_serve_hybrid(card)
+    # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks
+    assert counts == {
+        "serve": {"flash_attention_fwd": 3, "rglru_scan": 0,
+                  "quantize_int8": 0, "dequantize_int8": 0},
+        "serve-hybrid": {"flash_attention_fwd": 2, "rglru_scan": 6,
+                         "quantize_int8": 0, "dequantize_int8": 0}}
+    timing = smoke.phase_timing(card)
+    row = timing[("flash_attention_fwd", "serve")]
     # q + o (36x128x64) and k, v (12x128x64), bf16, over 3.35 TB/s
-    assert bound_by == "bytes"
-    assert bound_ms == pytest.approx(1_572_864 / 3.35e12 * 1e3)
+    assert row["bound_by"] == "bytes"
+    assert row["bound_ms"] == pytest.approx(1_572_864 / 3.35e12 * 1e3)
+    line = smoke.kernels_line(errs, counts, timing)["kernels"]
+    assert [k["name"] for k in line] == ["flash_attention_fwd", "rglru_scan",
+                                         "quantize_int8", "dequantize_int8"]
+    assert [k["launches"] for k in line] == [5, 6, 0, 0]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(k) and (ROOT / k["source"]).exists() for k in line)
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith('{"phase"')]
-    assert [ln["phase"] for ln in lines] == ["kernels", "serve-parity",
-                                             "serve", "timing"]
+    assert [ln["phase"] for ln in lines] == [
+        "kernels", "serve-parity", "serve", "serve-parity-hybrid",
+        "serve-hybrid", "timing"]
     assert all(ln["ok"] for ln in lines)
+
+
+def test_chip_smoke_bounds_at_the_serving_shapes(smoke):
+    """The bounds the timing phase reports, at the full serving shapes."""
+    ms, by, n_bytes, _ = smoke.rglru_bound(2, 2560, 4096)
+    # a, x and h_seq (2x2560x4096 fp32) plus h0 and h_last (2x4096 fp32)
+    assert (n_bytes, by) == (251_658_240 + 65_536, "bytes")
+    assert ms == pytest.approx(n_bytes / 3.35e12 * 1e3)
+    assert ms == pytest.approx(0.0751, abs=5e-5)
+    for dequant in (False, True):
+        ms, by, n_bytes, _ = smoke.quant_bound(50_331_648, 256, dequant)
+        assert (n_bytes, by) == (252_444_672, "bytes")
+        assert ms == pytest.approx(0.0754, abs=5e-5)
+    assert smoke.attention_pairs(2560, 2048) == 3_146_752
+    ms, by, n_bytes, flops = smoke.flash_bound(32, 2, 2560, 256, 2048)
+    assert (n_bytes, flops, by) == (89_128_960, 4 * 256 * 3_146_752 * 32,
+                                    "operations")
+    assert ms == pytest.approx(0.104, abs=5e-4)

@@ -89,3 +89,175 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+# -------------------------------------------------------------------- rg-lru
+
+from hypothesis import given, settings                     # noqa: E402
+from hypothesis import strategies as st                    # noqa: E402
+
+from repro.distributed import compression as np_compression  # noqa: E402
+from repro.kernels.quantize import dequantize_int8 as jax_dequant  # noqa: E402
+from repro.kernels.quantize import quantize_int8 as jax_quant  # noqa: E402
+from repro.kernels.ref import ref_dequantize_int8 as jax_ref_dequant  # noqa: E402
+from repro.kernels.ref import ref_quantize_int8 as jax_ref_quant  # noqa: E402
+from repro.kernels.ref import ref_rglru as jax_ref_rglru    # noqa: E402
+from repro.kernels.rglru import rglru_scan as jax_rglru_scan  # noqa: E402
+from repro_torch.kernels import quantize as tq              # noqa: E402
+from repro_torch.kernels import rglru as trg                # noqa: E402
+from repro_torch.kernels.ref import ref_rglru               # noqa: E402
+
+# tests/test_kernels.py:84-89 and its tolerances (:99)
+RGLRU_SWEEP = [(2, 256, 512, 128, 512), (1, 128, 1024, 64, 256),
+               (3, 512, 256, 256, 256), (2, 128, 128, 128, 128)]
+RGLRU_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _rglru_inputs(seed, b, s, d, a_scale=0.98):
+    rng = np.random.default_rng(seed)
+    a = a_scale / (1 + np.exp(-rng.standard_normal((b, s, d))))
+    x = rng.standard_normal((b, s, d)) * 0.1
+    h0 = rng.standard_normal((b, d))
+    return a.astype(np.float32), x.astype(np.float32), h0.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,d,chunk,block_d", RGLRU_SWEEP)
+def test_rglru_matches_jax(dtype, b, s, d, chunk, block_d):
+    a, x, h0 = _rglru_inputs(0, b, s, d)
+    ja, jx = (jnp.asarray(t).astype(dtype) for t in (a, x))
+    ta, tx = (torch.from_numpy(t).to(getattr(torch, dtype)) for t in (a, x))
+    launches = ops.RGLRU_LAUNCHES
+    hs, hl = ops.rglru(ta, tx, torch.from_numpy(h0))
+    assert ops.RGLRU_LAUNCHES == launches, "a CPU call launches no kernel"
+    assert hs.dtype == hl.dtype == torch.float32
+    assert hs.shape == (b, s, d) and hl.shape == (b, d)
+    ker = jax_rglru_scan(ja, jx, jnp.asarray(h0), chunk=chunk,
+                         block_d=block_d, interpret=True)
+    ref = jax_ref_rglru(ja, jx, jnp.asarray(h0))
+    for want in (ker, ref):
+        np.testing.assert_allclose(hs.numpy(), _np(want[0]),
+                                   atol=RGLRU_TOL[dtype])
+        np.testing.assert_allclose(hl.numpy(), _np(want[1]),
+                                   atol=RGLRU_TOL[dtype])
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.integers(1, 3), st.integers(1, 4))
+def test_rglru_linearity_property(b, chunks):
+    """Twin of tests/test_kernels.py:104: the recurrence is linear in x,
+    h(x1) + h(x2) == h(x1 + x2) with h0 = 0 (atol 1e-4)."""
+    s, d = chunks * 64, 128
+    a, x1, _ = _rglru_inputs(b * 13 + chunks, b, s, d, a_scale=0.95)
+    _, x2, _ = _rglru_inputs(b * 13 + chunks + 1, b, s, d)
+    ta, t1, t2 = (torch.from_numpy(t) for t in (a, x1, x2))
+    h0 = torch.zeros(b, d)
+    h_a, _ = ops.rglru(ta, t1, h0)
+    h_b, _ = ops.rglru(ta, t2, h0)
+    h_ab, _ = ops.rglru(ta, t1 + t2, h0)
+    np.testing.assert_allclose((h_a + h_b).numpy(), h_ab.numpy(), atol=1e-4)
+
+
+def test_ref_rglru_matches_a_loop_over_time():
+    """The doubling scan against the recurrence written as a loop, in
+    float64: any S (here not a power of two) and a carried h0."""
+    a, x, h0 = _rglru_inputs(3, 2, 37, 24)
+    hs, hl = ref_rglru(*(torch.from_numpy(t) for t in (a, x, h0)))
+    h = h0.astype(np.float64)
+    want = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + x[:, t]
+        want.append(h)
+    np.testing.assert_allclose(hs.numpy(), np.stack(want, 1), atol=1e-6)
+    np.testing.assert_allclose(hl.numpy(), want[-1], atol=1e-6)
+
+
+def test_rglru_refuses_grad():
+    a, x, h0 = (torch.from_numpy(t) for t in _rglru_inputs(4, 1, 8, 16))
+    with pytest.raises(NotImplementedError, match="training"):
+        ops.rglru(a.requires_grad_(), x, h0)
+
+
+# ----------------------------------------------------------------- quantize
+
+QUANT_SIZES = [(4096, 256), (512, 128), (65536, 256)]   # test_kernels.py:49
+
+
+@pytest.mark.parametrize("n,block", QUANT_SIZES)
+def test_quantize_matches_jax_and_numpy(n, block):
+    """Codes exact, scales rtol 1e-6, against the interpreted Pallas kernel,
+    the JAX oracle and the numpy path of the proxy trainer."""
+    x = np.random.default_rng(0).standard_normal(n).astype(np.float32) * 3
+    launches = (ops.QUANT_LAUNCHES, ops.DEQUANT_LAUNCHES)
+    q, s = ops.quantize_int8(torch.from_numpy(x), block=block)
+    assert q.dtype == torch.int8 and q.shape == (n // block, block)
+    assert s.dtype == torch.float32 and s.shape == (n // block,)
+    jq, js = jax_quant(jnp.asarray(x), block=block, interpret=True)
+    rq, rs = jax_ref_quant(jnp.asarray(x), block=block)
+    nq, ns, _ = np_compression.quantize_int8(x, block=block)
+    for want_q, want_s in ((jq, js), (rq, rs), (nq, ns)):
+        np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+        np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=1e-6)
+    xr = ops.dequantize_int8(q, s)
+    assert xr.dtype == torch.float32 and xr.shape == (n,)
+    assert (ops.QUANT_LAUNCHES, ops.DEQUANT_LAUNCHES) == launches
+    for want in (jax_dequant(jq, js, interpret=True),
+                 jax_ref_dequant(rq, rs), np_compression.dequantize_int8(
+                     nq, ns, (n,))):
+        np.testing.assert_allclose(xr.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_quantize_codes_at_half_steps_round_to_even():
+    """Values that land on .5 code steps: round half to even, as np.rint;
+    the division by the scale (not a reciprocal product) keeps them exact."""
+    x = (np.arange(256, dtype=np.float32) - 128) / 2
+    x[0] = 127.0                                # scale 1.0 exactly
+    q, s = ops.quantize_int8(torch.from_numpy(x))
+    assert float(s[0]) == 1.0
+    np.testing.assert_array_equal(q.numpy()[0], np.clip(np.rint(x), -127, 127))
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.integers(1, 16), st.floats(0.01, 100.0))
+def test_quantize_error_bound_property(nblocks, scale_mag):
+    """Twin of tests/test_kernels.py:63: |x - dequant(quant(x))| is at most
+    half a quantization step per block."""
+    n = nblocks * 256
+    x = (np.random.default_rng(nblocks).standard_normal(n)
+         * scale_mag).astype(np.float32)
+    q, s = ops.quantize_int8(torch.from_numpy(x))
+    xr = ops.dequantize_int8(q, s)
+    err = (xr - torch.from_numpy(x)).abs().numpy().reshape(nblocks, 256)
+    assert (err <= s.numpy()[:, None] * 0.5 + 1e-6).all()
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.integers(0, 5))
+def test_quantize_idempotent_property(seed):
+    """Twin of tests/test_kernels.py:77: quant(dequant(quant(x))) is a
+    fixed point (atol 1e-5)."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        1024).astype(np.float32) * 2)
+    x1 = ops.dequantize_int8(*ops.quantize_int8(x))
+    x2 = ops.dequantize_int8(*ops.quantize_int8(x1))
+    np.testing.assert_allclose(x1.numpy(), x2.numpy(), atol=1e-5)
+
+
+def test_new_kernel_wrappers_take_only_cuda_tensors():
+    a, x, h0 = (torch.from_numpy(t) for t in _rglru_inputs(5, 1, 8, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        trg.rglru_scan(a, x, h0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tq.quantize_int8(torch.zeros(256))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tq.dequantize_int8(torch.zeros((1, 256), dtype=torch.int8),
+                           torch.ones(1))
+
+
+def test_reset_launch_counts_resets_every_counter(monkeypatch):
+    for name in ("FLASH_LAUNCHES", "RGLRU_LAUNCHES", "QUANT_LAUNCHES",
+                 "DEQUANT_LAUNCHES"):
+        monkeypatch.setattr(ops, name, 7)
+    ops.reset_launch_counts()
+    assert (ops.FLASH_LAUNCHES, ops.RGLRU_LAUNCHES, ops.QUANT_LAUNCHES,
+            ops.DEQUANT_LAUNCHES) == (0, 0, 0, 0)
