@@ -10,11 +10,15 @@ one JSON line each; any failure exits non-zero:
 
   build          compile the three kernel libraries from
                  src/repro_torch/kernels/csrc into build/repro_torch_kernels,
-                 one nvcc each, all at once; print each ptxas report
+                 one nvcc each, all at once; print registers and spills of
+                 every kernel instantiation (ptxas), and fail if the bf16
+                 flash kernels spill
   kernels        each kernel through kernels/ops.py on CUDA against its plain
                  version on the same CUDA tensors: flash attention over the
-                 sweep of tests/test_kernels.py, constant V and the shapes of
-                 both serving paths; the RG-LRU scan over its sweep, the
+                 sweep of tests/test_kernels.py, constant V, the shapes of
+                 both serving paths and bf16 cases that stress the tensor-core
+                 tiling, and its tile table against the library's; the
+                 RG-LRU scan over its sweep, the
                  serving shape and linearity; int8 quantize/dequantize codes
                  (bit-exact) and scales, the half-step bound and idempotence
   serve-parity   full-width smollm-135m (seeded random weights), fp32, B=2,
@@ -34,7 +38,8 @@ one JSON line each; any failure exits non-zero:
                  path; 12 flash and 26 RG-LRU launches, peak memory
   timing         every kernel at the shapes its path gives it against its
                  plain version, a PyTorch call where one computes the same
-                 function, and the card's bound
+                 function, and the card's bound; achieved TFLOP/s, TB/s and
+                 share of the bound
 
 Then one line {"kernels": [...]}, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +75,15 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}          # tests/test_kernels.py
 SWEEP = [(4, 2, 256, 256, 64, True, 0), (2, 2, 128, 128, 128, True, 0),
          (8, 2, 128, 128, 64, True, 0), (6, 2, 256, 256, 64, True, 64),
          (2, 2, 128, 384, 64, False, 0), (2, 1, 512, 512, 256, True, 0)]
+# bf16 cases for the tensor-core tiling (64-key tiles, 64/128-row q tiles):
+# (bh, bkv, sq, sk, hd, causal, window, magnitude of q and k)
+FLASH_BF16_CASES = [
+    (4, 2, 256, 256, 64, True, 100, 1),   # a window no tile size divides
+    (2, 1, 256, 256, 256, True, 100, 1),
+    (4, 2, 256, 256, 64, True, 0, 8),     # q, k x 8: the running max moves
+    (2, 1, 512, 512, 256, True, 64, 8),   # between tiles, and at the edge
+    (16, 2, 256, 256, 128, True, 0, 1),   # hd 128, g = 8
+]
 RGLRU_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # tests/test_kernels.py:99
 RGLRU_SWEEP = [(2, 256, 512), (1, 128, 1024), (3, 512, 256), (2, 128, 128)]
 QUANT_SIZES = [(4096, 256), (512, 128), (65536, 256)]
@@ -157,6 +172,13 @@ def in_turns(fns: dict) -> dict:
 
 # --------------------------------------------------------------- bounds
 
+def achieved(ms: float, ops: float, n_bytes: int, bound_ms: float) -> dict:
+    """What a kernel reached in ``ms``: TFLOP/s and TB/s on the work its
+    bound counts, and the share of that bound (bound_ms / ms)."""
+    return {"tflops": ops / ms / 1e9, "tbps": n_bytes / ms / 1e9,
+            "share_of_bound": bound_ms / ms}
+
+
 def _bound(n_bytes: int, ops: float, peak_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
@@ -194,6 +216,22 @@ def quant_bound(n, block, dequant=False):
 
 # ---------------------------------------------------------------- build
 
+def ptxas_summary(report: str) -> list:
+    """Each function of a ``ptxas -v`` report: its (mangled) name, which
+    names the template instantiation, its registers and spill bytes."""
+    out = []
+    for ln in report.splitlines():
+        if m := re.search(r"Function properties for (\S+)", ln):
+            out.append({"function": m.group(1)})
+        elif out and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                     r"bytes spill loads", ln)):
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        elif out and (m := re.search(r"Used (\d+) registers", ln)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build(card_line):
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention, quantize, rglru
@@ -201,14 +239,14 @@ def phase_build(card_line):
     t0 = time.perf_counter()
     libs = build.build_all(sources)
     build_s = time.perf_counter() - t0
-    ptxas = {}
-    for lib in libs:
-        report = build.ptxas_report(lib).read_text().splitlines()
-        ptxas[str(lib.relative_to(ROOT))] = [
-            ln.split(":", 1)[-1].strip() for ln in report
-            if "Function properties" in ln or "Used" in ln or "spill" in ln]
-    emit("build", all(lib.exists() for lib in libs), card_line,
-         build_s=build_s, ptxas=ptxas)
+    ptxas = {str(lib.relative_to(ROOT)): ptxas_summary(
+        build.ptxas_report(lib).read_text()) for lib in libs}
+    tc = [f for fns in ptxas.values() for f in fns
+          if "fa_fwd_tc_kernel" in f["function"]]       # one per head dim
+    spills = [f["function"] for f in tc if f.get("spill_stores", 1)]
+    emit("build", all(lib.exists() for lib in libs)
+         and len(tc) == len(flash_attention._HEAD_DIMS) and not spills,
+         card_line, build_s=build_s, ptxas=ptxas, bf16_flash_spills=spills)
 
 
 # -------------------------------------------------------------- kernels
@@ -219,35 +257,48 @@ def _randn(gen, *shape, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+def _check_flash_tiles():
+    """The wrapper's tile table against the built library's own."""
+    from repro_torch.kernels import flash_attention as fa
+    bad = []
+    for (dtype, hd), tiles in fa.TILES.items():
+        built = fa.library_tiles(dtype, hd)
+        if built != tiles:
+            bad.append(["flash", "tiles", str(dtype), hd, tiles, built])
+    return bad
+
+
 def _check_flash(gen):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ref_flash_attention
     hy = HYBRID_FLASH_SHAPE
-    cases = [(dt,) + c for dt in ("float32", "bfloat16") for c in SWEEP]
-    cases += [("float32", 2, 2, 384, 384, 64, True, 0),     # test_kernels.py:41
-              ("bfloat16", 36, 12, 128, 128, 64, True, 0),  # serve, B=4 bf16
-              ("float32", 18, 6, 128, 128, 64, True, 0),    # serve-parity fp32
+    cases = [(dt,) + c + (1,) for dt in ("float32", "bfloat16") for c in SWEEP]
+    cases += [("float32", 2, 2, 384, 384, 64, True, 0, 1),  # test_kernels.py:41
+              ("bfloat16", 36, 12, 128, 128, 64, True, 0, 1),  # serve, B=4
+              ("float32", 18, 6, 128, 128, 64, True, 0, 1),  # serve-parity
               ("bfloat16", hy["b"] * hy["h"], hy["b"] * hy["kv"], hy["s"],
-               hy["s"], hy["hd"], True, hy["window"]),      # serve-hybrid
+               hy["s"], hy["hd"], True, hy["window"], 1),   # serve-hybrid
               ("float32", hy["h"], hy["kv"], HYBRID_PARITY_PROMPT,
-               HYBRID_PARITY_PROMPT, hy["hd"], True, hy["window"])]
+               HYBRID_PARITY_PROMPT, hy["hd"], True, hy["window"], 1)]
+    cases += [("bfloat16",) + c for c in FLASH_BF16_CASES]
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    bad, at_path = [], {}
-    for dt, bh, bkv, sq, sk, hd, causal, window in cases:
+    bad, at_path = _check_flash_tiles(), {}
+    for dt, bh, bkv, sq, sk, hd, causal, window, mag in cases:
         dtype = getattr(torch, dt)
-        q = _randn(gen, bh, sq, hd, dtype=dtype)
-        k = _randn(gen, bkv, sk, hd, dtype=dtype)
+        q = (_randn(gen, bh, sq, hd) * mag).to(dtype)
+        k = (_randn(gen, bkv, sk, hd) * mag).to(dtype)
         v = _randn(gen, bkv, sk, hd, dtype=dtype)
         out = ops.flash_attention(q, k, v, causal, window)
         ref = ref_flash_attention(q, k, v, causal=causal, window=window)
         err = float((out.float() - ref.float()).abs().max())
         worst[dt] = max(worst[dt], err)
         if not err <= TOL[dt]:
-            bad.append(["flash", dt, bh, bkv, sq, sk, hd, causal, window, err])
+            bad.append(["flash", dt, bh, bkv, sq, sk, hd, causal, window, mag,
+                        err])
         if dt == "bfloat16" and (bh, sq) == (36, 128):
             at_path["serve"] = err
-        if dt == "bfloat16" and window == hy["window"]:
+        if dt == "bfloat16" and window == hy["window"] and mag == 1:
             at_path["serve-hybrid"] = err
     q = _randn(gen, 2, 128, 64)
     k = _randn(gen, 2, 128, 64)
@@ -646,10 +697,12 @@ def phase_timing(card_line):
     for key, job in jobs.items():
         fns, (bound_ms, bound_by, n_bytes, ops), lib_err = job()
         runs = in_turns(fns)
-        rows[key] = {"ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+        ms = min(runs["kernel"])
+        rows[key] = {"ms": ms, "plain_ms": min(runs["plain"]),
                      "library_ms": min(runs["library"]) if "library" in runs
                      else None, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": n_bytes, "ops": ops, "runs_ms": runs,
+                     "bytes": n_bytes, "ops": ops,
+                     **achieved(ms, ops, n_bytes, bound_ms), "runs_ms": runs,
                      "library_vs_kernel_max_abs_err": lib_err}
         ok = ok and (lib_err is None or lib_err <= TOL["bfloat16"])
         del fns
@@ -684,7 +737,9 @@ _KERNELS = {
 def kernels_line(errs, counts_by_path, timing) -> dict:
     """One entry per kernel.  Flash attention runs on both serving paths:
     its launches are their sum, its numbers those of the hybrid path's
-    shape (where its time goes), and ``at_shapes`` holds both shapes."""
+    shape (where its time goes), and ``at_shapes`` holds both shapes;
+    ``instantiations`` says which kernel each dtype runs."""
+    from repro_torch.kernels import flash_attention as fa
     entries = []
     for name, (src, replaces) in _KERNELS.items():
         by_path = {path: counts[name] for path, counts in counts_by_path.items()}
@@ -698,10 +753,13 @@ def kernels_line(errs, counts_by_path, timing) -> dict:
                                          "bound_by", "library_ms")}}
         if name == "flash_attention_fwd":
             entry["max_abs_err"] = max(errs[name].values())
+            entry["instantiations"] = {str(dt).removeprefix("torch."): how
+                                       for dt, how in fa.INSTANTIATIONS.items()}
             entry["at_shapes"] = {
                 shape: {"max_abs_err": errs[name][shape],
-                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")}}
+                        **{k: row[k] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "tflops", "share_of_bound")}}
                 for shape, row in shapes.items()}
         entries.append(entry)
     return {"kernels": entries}

@@ -1,7 +1,9 @@
 """Flash-attention forward on Hopper: builds, binds and launches the CUDA
-kernel in ``csrc/flash_attention_fwd.cu`` (twin of
+kernels in ``csrc/flash_attention_fwd.cu`` (twin of
 ``repro.kernels.flash_attention``; the source's header says what bounds it
-and how it is laid out).
+and how it is laid out).  One C entry point, two kernels chosen by dtype:
+bf16 runs on the tensor cores (wgmma), fp32 on the CUDA cores in exact
+fp32 arithmetic.
 
 The library is built by ``kernels/build.py`` at first use and loaded with
 ``ctypes``.  Nothing is compiled or loaded when this module is imported.
@@ -17,6 +19,17 @@ from repro_torch.kernels import build as _build
 SOURCE = _build.CSRC / "flash_attention_fwd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
+#: Which kernel each dtype runs.
+INSTANTIATIONS = {torch.bfloat16: "tensor cores (wgmma, bf16 in, fp32 acc)",
+                  torch.float32: "CUDA cores (fp32 FMA)"}
+#: (block_q, block_k) of the kernel each (dtype, head_dim) runs: Sq must be a
+#: multiple of block_q and Sk of block_k.  The library reports its own
+#: (``fa_block_q``/``fa_block_k``), which launches are checked against and
+#: chip_smoke.py holds this table to.
+TILES = {(torch.float32, 64): (64, 64), (torch.float32, 128): (64, 64),
+         (torch.float32, 256): (64, 32),
+         (torch.bfloat16, 64): (64, 64), (torch.bfloat16, 128): (128, 64),
+         (torch.bfloat16, 256): (128, 64)}
 _lib = None
 
 
@@ -27,8 +40,8 @@ def _load():
         _lib = _build.load(SOURCE, {
             "fa_fwd": ([vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                         ctypes.c_float, ci, ci, vp], ci),
-            "fa_block_q": ([], ci),
-            "fa_block_k": ([ci], ci),
+            "fa_block_q": ([ci, ci], ci),
+            "fa_block_k": ([ci, ci], ci),
             "fa_error_string": ([ci], ctypes.c_char_p)})
     return _lib
 
@@ -59,6 +72,16 @@ def _check(q, k, v) -> None:
     if bkv == 0 or bh % bkv or bh > 65535:
         raise ValueError(f"BH={bh} must be a multiple of BKV={bkv} and "
                          f"at most 65535")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"bf16 {name} must start on a 16-byte boundary "
+                             f"(the kernel copies 16-byte chunks)")
+
+
+def library_tiles(dtype, hd: int) -> tuple:
+    """(block_q, block_k) as the built library reports them."""
+    lib, code = _load(), _DTYPE_CODES[dtype]
+    return lib.fa_block_q(code, hd), lib.fa_block_k(code, hd)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -72,7 +95,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     bh, sq, hd = q.shape
     bkv, sk, _ = k.shape
     lib = _load()
-    block_q, block_k = lib.fa_block_q(), lib.fa_block_k(hd)
+    block_q, block_k = library_tiles(q.dtype, hd)
     if sq == 0 or sk == 0 or sq % block_q or sk % block_k:
         raise ValueError(f"Sq={sq} must be a positive multiple of {block_q} "
                          f"and Sk={sk} of {block_k}")

@@ -89,6 +89,8 @@ def smoke(monkeypatch):
         fa, "flash_attention_fwd",
         lambda q, k, v, *, causal=True, window=0, scale=None:
         ref_flash_attention(q, k, v, causal=causal, window=window))
+    monkeypatch.setattr(fa, "library_tiles",
+                        lambda dtype, hd: fa.TILES[(dtype, hd)])
     monkeypatch.setattr(rk, "rglru_scan", ref_rglru)
     monkeypatch.setattr(qk, "quantize_int8", ref_quantize_int8)
     monkeypatch.setattr(qk, "dequantize_int8", ref_dequantize_int8)
@@ -128,6 +130,7 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     # q + o (36x128x64) and k, v (12x128x64), bf16, over 3.35 TB/s
     assert row["bound_by"] == "bytes"
     assert row["bound_ms"] == pytest.approx(1_572_864 / 3.35e12 * 1e3)
+    assert row["share_of_bound"] == pytest.approx(row["bound_ms"] / row["ms"])
     line = smoke.kernels_line(errs, counts, timing)["kernels"]
     assert [k["name"] for k in line] == ["flash_attention_fwd", "rglru_scan",
                                          "quantize_int8", "dequantize_int8"]
@@ -135,6 +138,11 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) and (ROOT / k["source"]).exists() for k in line)
+    flash = line[0]
+    assert set(flash["instantiations"]) == {"bfloat16", "float32"}
+    assert "tensor cores" in flash["instantiations"]["bfloat16"]
+    assert all({"tflops", "share_of_bound"} <= set(at)
+               for at in flash["at_shapes"].values())
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith('{"phase"')]
     assert [ln["phase"] for ln in lines] == [
@@ -159,3 +167,40 @@ def test_chip_smoke_bounds_at_the_serving_shapes(smoke):
     assert (n_bytes, flops, by) == (89_128_960, 4 * 256 * 3_146_752 * 32,
                                     "operations")
     assert ms == pytest.approx(0.104, abs=5e-4)
+
+
+@pytest.mark.parametrize("shape,ms,tflops,share", [
+    # recurrentgemma-9b prefill: 1.031e11 FLOP over the window, bound 0.104 ms
+    ((32, 2, 2560, 256, 2048), 0.5, 206.2, 0.2085),
+    # smollm-135m prefill: bound by its 1.57 MB, 0.00047 ms
+    ((36, 12, 128, 64, 0), 0.03, 2.536, 0.01565)],
+    ids=["recurrentgemma-9b", "smollm-135m"])
+def test_chip_smoke_achieved_rates_at_the_serving_shapes(smoke, shape, ms,
+                                                         tflops, share):
+    """The timing phase's TFLOP/s, TB/s and share of the bound, from a
+    kernel time and the work that the bound counts."""
+    bound_ms, _, n_bytes, flops = smoke.flash_bound(*shape)
+    got = smoke.achieved(ms, flops, n_bytes, bound_ms)
+    assert got["tflops"] == pytest.approx(flops / (ms * 1e-3) / 1e12)
+    assert got["tflops"] == pytest.approx(tflops, rel=1e-3)
+    assert got["tbps"] == pytest.approx(n_bytes / (ms * 1e-3) / 1e12)
+    assert got["share_of_bound"] == pytest.approx(share, rel=1e-3)
+
+
+PTXAS = """\
+ptxas info    : Compiling entry function '_ZN2tc16fa_fwd_tc_kernelILi256EEEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc16fa_fwd_tc_kernelILi256EEEvPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 230 registers, used 1 barriers
+ptxas info    : Function properties for _ZN13fa_fwd_kernelIfLi64EEEvPKT_
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_reads_registers_and_spills_of_each_instantiation(smoke):
+    assert smoke.ptxas_summary(PTXAS) == [
+        {"function": "_ZN2tc16fa_fwd_tc_kernelILi256EEEvPK13__nv_bfloat16",
+         "spill_stores": 0, "spill_loads": 0, "registers": 230},
+        {"function": "_ZN13fa_fwd_kernelIfLi64EEEvPKT_",
+         "spill_stores": 4, "spill_loads": 12, "registers": 64}]

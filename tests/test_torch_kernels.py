@@ -84,6 +84,21 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
         tfa.flash_attention_fwd(q, k, v)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_tiles_divide_every_length_flash_ok_admits(dtype, hd):
+    """models/attention.py::_flash_ok sends the kernel Sq and Sk that are
+    multiples of 128; every tile the wrapper declares must divide 128, so
+    that no such prompt is refused.  chip_smoke.py holds this table to the
+    built library's fa_block_q/fa_block_k."""
+    assert set(tfa.TILES) == {(d, h) for d in tfa._DTYPE_CODES
+                              for h in tfa._HEAD_DIMS}
+    block_q, block_k = tfa.TILES[(dtype, hd)]
+    assert block_q > 0 and 128 % block_q == 0
+    assert block_k > 0 and 128 % block_k == 0
+    assert dtype in tfa.INSTANTIATIONS
+
+
 def test_cuda_request_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
