@@ -10,17 +10,20 @@ one JSON line each; any failure exits non-zero:
 
   build          compile the three kernel libraries from
                  src/repro_torch/kernels/csrc into build/repro_torch_kernels,
-                 one nvcc each, all at once; print registers and spills of
-                 every kernel instantiation (ptxas), and fail if the bf16
-                 flash kernels spill
+                 one nvcc each, all at once; print registers, spills and
+                 static shared memory of every kernel instantiation (ptxas),
+                 the RG-LRU kernel's apart, and fail if the bf16 flash
+                 kernels spill
   kernels        each kernel through kernels/ops.py on CUDA against its plain
                  version on the same CUDA tensors: flash attention over the
                  sweep of tests/test_kernels.py, constant V, the shapes of
                  both serving paths and bf16 cases that stress the tensor-core
                  tiling, and its tile table against the library's; the
-                 RG-LRU scan over its sweep, the
-                 serving shape and linearity; int8 quantize/dequantize codes
-                 (bit-exact) and scales, the half-step bound and idempotence
+                 RG-LRU scan over its sweep, cases that stress its tiles and
+                 carry (RGLRU_STRESS), the shapes of both hybrid paths,
+                 linearity; int8
+                 quantize/dequantize codes (bit-exact) and scales, the
+                 half-step bound and idempotence
   serve-parity   full-width smollm-135m (seeded random weights), fp32, B=2,
                  prompt 128: 30 flash launches for the prefill; flash vs
                  chunked block by block at full depth, and logits and greedy
@@ -36,10 +39,13 @@ one JSON line each; any failure exits non-zero:
   serve-hybrid   the repro_torch.launch.serve path, recurrentgemma-9b at full
                  width, bf16, B=2, prompt 2560, 32 new tokens: the other main
                  path; 12 flash and 26 RG-LRU launches, peak memory
-  timing         every kernel at the shapes its path gives it against its
-                 plain version, a PyTorch call where one computes the same
+  timing         every kernel at the shapes its paths give it (flash also
+                 in fp32 at the serve-parity shapes, the RG-LRU scan at both
+                 hybrid shapes and with bf16 inputs) against its plain
+                 version, a PyTorch call where one computes the same
                  function, and the card's bound; achieved TFLOP/s, TB/s and
-                 share of the bound
+                 share of the bound; the RG-LRU scratch traffic, from a
+                 launch that counts it, and that launch's time
 
 Then one line {"kernels": [...]}, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
@@ -86,6 +92,21 @@ FLASH_BF16_CASES = [
 ]
 RGLRU_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # tests/test_kernels.py:99
 RGLRU_SWEEP = [(2, 256, 512), (1, 128, 1024), (3, 512, 256), (2, 128, 128)]
+# Cases that stress the kernel's tiles of 64 steps x 128 lanes
+# (kernels/rglru.py::rglru_plan) and the carry across them: (b, s, d, a),
+# a "sigmoid" = 0.98 sigmoid(N(0, 1)), "near-one" in [0.9999, 1) so h0's
+# carry survives every chunk, "zeros" = sigmoid with ~1% exact zeros, which
+# cut the carry mid-chunk, "offset" = sigmoid in views that start one
+# element into their storage.  Odd D, and bf16 views at an odd element,
+# are not 4-byte aligned: the kernel copies them through registers.
+# near-one runs 1024 steps: with a so close to 1, h random-walks, and over
+# many more steps the fp32 rounding of the plain version itself nears the
+# tolerance.
+RGLRU_STRESS = [(2, 63, 512, "sigmoid"), (2, 64, 512, "sigmoid"),
+                (2, 65, 512, "sigmoid"), (2, 300, 200, "sigmoid"),
+                (1, 129, 1001, "sigmoid"), (3, 1, 300, "sigmoid"),
+                (1, 16384, 256, "sigmoid"), (2, 1024, 512, "near-one"),
+                (2, 1024, 512, "zeros"), (2, 300, 256, "offset")]
 QUANT_SIZES = [(4096, 256), (512, 128), (65536, 256)]
 PARITY_TOL = 1e-3                                  # kernel vs plain paths
 
@@ -192,12 +213,14 @@ def attention_pairs(s: int, window: int) -> int:
     return sum(min(i + 1, window) for i in range(s))
 
 
-def flash_bound(bh, bkv, s, hd, window, elem_bytes=2):
+def flash_bound(bh, bkv, s, hd, window, elem_bytes=2,
+                peak_ops=BF16_FLOP_PER_S):
     """q and o, k and v once each; QK^T and PV over the pairs that the
-    causal window keeps, 2 flops per MAC, on bf16 tensor cores."""
+    causal window keeps, 2 flops per MAC, at ``peak_ops``: the bf16 tensor
+    cores, or the fp32 CUDA cores (FP32_FLOP_PER_S) for the fp32 kernel."""
     n_bytes = (2 * bh + 2 * bkv) * s * hd * elem_bytes
     return _bound(n_bytes, 4 * hd * attention_pairs(s, window) * bh,
-                  BF16_FLOP_PER_S)
+                  peak_ops)
 
 
 def rglru_bound(b, s, d, elem_bytes=4):
@@ -218,7 +241,8 @@ def quant_bound(n, block, dequant=False):
 
 def ptxas_summary(report: str) -> list:
     """Each function of a ``ptxas -v`` report: its (mangled) name, which
-    names the template instantiation, its registers and spill bytes."""
+    names the template instantiation, its registers, spill bytes and static
+    shared memory (where ptxas reports any)."""
     out = []
     for ln in report.splitlines():
         if m := re.search(r"Function properties for (\S+)", ln):
@@ -229,6 +253,8 @@ def ptxas_summary(report: str) -> list:
             out[-1]["spill_loads"] = int(m.group(2))
         elif out and (m := re.search(r"Used (\d+) registers", ln)):
             out[-1]["registers"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", ln):
+                out[-1]["smem_bytes"] = int(m.group(1))
     return out
 
 
@@ -241,12 +267,13 @@ def phase_build(card_line):
     build_s = time.perf_counter() - t0
     ptxas = {str(lib.relative_to(ROOT)): ptxas_summary(
         build.ptxas_report(lib).read_text()) for lib in libs}
-    tc = [f for fns in ptxas.values() for f in fns
-          if "fa_fwd_tc_kernel" in f["function"]]       # one per head dim
+    fns = [f for lib_fns in ptxas.values() for f in lib_fns]
+    tc = [f for f in fns if "fa_fwd_tc_kernel" in f["function"]]  # per hd
     spills = [f["function"] for f in tc if f.get("spill_stores", 1)]
     emit("build", all(lib.exists() for lib in libs)
          and len(tc) == len(flash_attention._HEAD_DIMS) and not spills,
-         card_line, build_s=build_s, ptxas=ptxas, bf16_flash_spills=spills)
+         card_line, build_s=build_s, ptxas=ptxas, bf16_flash_spills=spills,
+         rglru_ptxas=[f for f in fns if "rglru" in f["function"]])
 
 
 # -------------------------------------------------------------- kernels
@@ -300,6 +327,10 @@ def _check_flash(gen):
             at_path["serve"] = err
         if dt == "bfloat16" and window == hy["window"] and mag == 1:
             at_path["serve-hybrid"] = err
+        if dt == "float32" and (bh, sq) == (18, 128):
+            at_path["serve-parity"] = err
+        if dt == "float32" and window == hy["window"]:
+            at_path["serve-parity-hybrid"] = err
     q = _randn(gen, 2, 128, 64)
     k = _randn(gen, 2, 128, 64)
     v = torch.full((2, 128, 64), 2.5, device=DEV)
@@ -309,38 +340,67 @@ def _check_flash(gen):
     return {**worst, "constant_v": const_err}, bad, at_path, len(cases) + 1
 
 
+def rglru_paths() -> dict:
+    """The RG-LRU kernel's (b, s, d, dtype) on each path: fp32 on both
+    hybrid paths (the gates are fp32 under every policy), and bf16 inputs,
+    which no path gives it, at the serving shape."""
+    b, s, d = RGLRU_SHAPE
+    return {"serve-hybrid": (b, s, d, "float32"),
+            "serve-parity-hybrid": (1, HYBRID_PARITY_PROMPT, d, "float32"),
+            "bf16-inputs": (b, s, d, "bfloat16")}
+
+
+def _rglru_inputs(gen, b, s, d, dtype, kind="sigmoid", a_scale=0.98):
+    import torch
+    if kind == "near-one":
+        a = 1 - 1e-4 * torch.rand((b, s, d), generator=gen, device=DEV)
+    else:
+        a = torch.sigmoid(_randn(gen, b, s, d)) * a_scale
+    if kind == "zeros":
+        a = torch.where(torch.rand((b, s, d), generator=gen, device=DEV)
+                        < 0.01, 0.0, a)
+    a, x = a.to(dtype), (_randn(gen, b, s, d) * 0.1).to(dtype)
+    if kind == "offset":
+        a, x = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(b, s, d)
+                for t in (a, x))
+    return a, x, _randn(gen, b, d)
+
+
 def _check_rglru(gen):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ref_rglru
 
-    def inputs(b, s, d, dtype, a_scale=0.98):
-        a = (torch.sigmoid(_randn(gen, b, s, d)) * a_scale).to(dtype)
-        return a, (_randn(gen, b, s, d) * 0.1).to(dtype), _randn(gen, b, d)
-
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    bad, serve_err = [], None
-    cases = [(dt, b, s, d) for dt in ("float32", "bfloat16")
-             for b, s, d in RGLRU_SWEEP + [RGLRU_SHAPE]]
-    for dt, b, s, d in cases:
-        a, x, h0 = inputs(b, s, d, getattr(torch, dt))
+    worst, worst_case = {"float32": 0.0, "bfloat16": 0.0}, {}
+    bad, at_path = [], {}
+    paths = {case: path for path, case in rglru_paths().items()}
+    cases = [(dt, b, s, d, "sigmoid") for dt in ("float32", "bfloat16")
+             for b, s, d in RGLRU_SWEEP]
+    cases += [(dt, b, s, d, kind) for dt in ("float32", "bfloat16")
+              for b, s, d, kind in RGLRU_STRESS]
+    cases += [(dt, b, s, d, "sigmoid") for b, s, d, dt in paths]
+    for dt, b, s, d, kind in cases:
+        a, x, h0 = _rglru_inputs(gen, b, s, d, getattr(torch, dt), kind)
         hs, hl = ops.rglru(a, x, h0)
         rs, rl = ref_rglru(a, x, h0)
         err = max(float((hs - rs).abs().max()), float((hl - rl).abs().max()))
-        worst[dt] = max(worst[dt], err)
-        if not (err <= RGLRU_TOL[dt] and hs.dtype == hl.dtype == torch.float32):
-            bad.append(["rglru", dt, b, s, d, err])
-        if dt == "float32" and (b, s, d) == RGLRU_SHAPE:
-            serve_err = err
+        if err >= worst[dt]:
+            worst[dt], worst_case[dt] = err, [b, s, d, kind]
+        if not (err <= RGLRU_TOL[dt] and hs.dtype == hl.dtype == torch.float32
+                and hs.shape == (b, s, d) and hl.shape == (b, d)):
+            bad.append(["rglru", dt, b, s, d, kind, err])
+        if kind == "sigmoid" and (b, s, d, dt) in paths:
+            at_path[paths[(b, s, d, dt)]] = err
     # linear in x with h0 = 0 (tests/test_kernels.py:104)
-    a, x1, _ = inputs(2, 256, 128, torch.float32, a_scale=0.95)
+    a, x1, _ = _rglru_inputs(gen, 2, 256, 128, torch.float32, a_scale=0.95)
     x2 = _randn(gen, 2, 256, 128) * 0.1
     h0 = torch.zeros(2, 128, device=DEV)
     lin_err = float((ops.rglru(a, x1, h0)[0] + ops.rglru(a, x2, h0)[0]
                      - ops.rglru(a, x1 + x2, h0)[0]).abs().max())
     if not lin_err <= 1e-4:
         bad.append(["rglru", "linearity", lin_err])
-    return ({**worst, "linearity": lin_err}, bad, serve_err, len(cases) + 1)
+    return ({**worst, "worst_case": worst_case, "linearity": lin_err}, bad,
+            at_path, len(cases) + 1)
 
 
 def _check_quant(gen):
@@ -381,7 +441,8 @@ def _check_quant(gen):
 
 
 def phase_kernels(card_line):
-    """Returns each kernel's max abs error at its serving shape."""
+    """Returns each kernel's max abs error at its serving shape (by path
+    where it runs at more than one)."""
     import torch
     gen = torch.Generator(device=DEV).manual_seed(0)
     flash_worst, flash_bad, flash_err, n_flash = _check_flash(gen)
@@ -396,7 +457,8 @@ def phase_kernels(card_line):
                                       "idempotence": 1e-5}},
          worst={"flash_attention_fwd": flash_worst, "rglru_scan": rglru_worst,
                 "quantize_int8": quant_worst},
-         flash_err_at_path=flash_err, failures=bad)
+         flash_err_at_path=flash_err, rglru_err_at_path=rglru_err,
+         failures=bad)
     return {"flash_attention_fwd": flash_err, "rglru_scan": rglru_err,
             **quant_errs}
 
@@ -615,14 +677,17 @@ def phase_serve_hybrid(card_line):
 
 # -------------------------------------------------------------- timing
 
-def _time_flash(gen, b, h, kv, s, hd, window):
+def _time_flash(gen, b, h, kv, s, hd, window, dtype="bfloat16"):
+    """bf16 runs on the tensor cores and fp32 on the CUDA cores: each is
+    bounded at its own peak rate."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import ref_flash_attention
-    q = _randn(gen, b * h, s, hd, dtype=torch.bfloat16)
-    k = _randn(gen, b * kv, s, hd, dtype=torch.bfloat16)
-    v = _randn(gen, b * kv, s, hd, dtype=torch.bfloat16)
+    dt = getattr(torch, dtype)
+    q = _randn(gen, b * h, s, hd, dtype=dt)
+    k = _randn(gen, b * kv, s, hd, dtype=dt)
+    v = _randn(gen, b * kv, s, hd, dtype=dt)
     pos = torch.arange(s, device=DEV)
     mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
 
@@ -645,20 +710,44 @@ def _time_flash(gen, b, h, kv, s, hd, window):
            "library": library}
     lib_err = float((library().reshape(b * h, s, hd).float()
                      - fns["kernel"]().float()).abs().max())
-    return fns, flash_bound(b * h, b * kv, s, hd, window), lib_err
+    peak = BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S
+    return fns, flash_bound(b * h, b * kv, s, hd, window, dt.itemsize,
+                            peak), lib_err
 
 
-def _time_rglru(gen):
+def _time_rglru(gen, b, s, d, dtype):
     import torch
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels.ref import ref_rglru
-    b, s, d = RGLRU_SHAPE
-    a = torch.sigmoid(_randn(gen, b, s, d)) * 0.98
-    x = _randn(gen, b, s, d) * 0.1
-    h0 = _randn(gen, b, d)
+    a, x, h0 = _rglru_inputs(gen, b, s, d, getattr(torch, dtype))
     fns = {"plain": lambda: ref_rglru(a, x, h0),
            "kernel": lambda: rg.rglru_scan(a, x, h0)}
-    return fns, rglru_bound(b, s, d), None
+    return fns, rglru_bound(b, s, d, a.element_size()), None
+
+
+def rglru_scratch(b, s, d, dtype) -> dict:
+    """Bytes one launch moved through its scratch (flags, (A, X) pairs,
+    carry-outs), from a launch that counts them, beside the bytes its bound
+    counts; and what counting costs: that launch's time in turns with the
+    launch the serving path makes, which counts nothing."""
+    import torch
+    from repro_torch.kernels import rglru as rg
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    a, x, h0 = _rglru_inputs(gen, b, s, d, getattr(torch, dtype))
+    plan = rg.rglru_plan(b, s, d)
+    counts = torch.zeros(3, dtype=torch.int64, device=DEV)
+    rg.rglru_scan(a, x, h0, counts=counts)
+    sync()
+    got = rg.scratch_traffic(plan, b, d, counts)
+    moved = got["written_bytes"] + got["read_bytes"] + got["atomic_bytes"]
+    runs = in_turns({"serving": lambda: rg.rglru_scan(a, x, h0),
+                     "counting": lambda: rg.rglru_scan(a, x, h0,
+                                                       counts=counts)})
+    return {**got, "scratch_bytes": plan.scratch_bytes, "tiles": plan.tiles,
+            "share_of_bound_bytes": moved / rglru_bound(b, s, d,
+                                                        a.element_size())[2],
+            "serving_ms": min(runs["serving"]),
+            "counting_ms": min(runs["counting"])}
 
 
 def _time_quant(gen, dequant):
@@ -675,24 +764,34 @@ def _time_quant(gen, dequant):
     return fns, quant_bound(QUANT_N, QUANT_BLOCK, dequant), None
 
 
+def flash_paths() -> dict:
+    """The flash kernel's shape on each path, (b, h, kv, s, hd, window,
+    dtype): bf16 on the serving paths, fp32 on the serve-parity paths."""
+    hy, sm = HYBRID_FLASH_SHAPE, SLICE_SHAPE
+    return {"serve": (sm["b"], sm["h"], sm["kv"], sm["s"], sm["hd"], 0,
+                      "bfloat16"),
+            "serve-hybrid": (hy["b"], hy["h"], hy["kv"], hy["s"], hy["hd"],
+                             hy["window"], "bfloat16"),
+            "serve-parity": (2, sm["h"], sm["kv"], 128, sm["hd"], 0,
+                             "float32"),
+            "serve-parity-hybrid": (1, hy["h"], hy["kv"], HYBRID_PARITY_PROMPT,
+                                    hy["hd"], hy["window"], "float32")}
+
+
 def phase_timing(card_line):
-    """Each kernel at its serving shape: its time, its plain version's, a
-    PyTorch call's where one computes the same function (SDPA for flash
-    attention; none exists for a linear recurrence or for this blockwise
-    int8 code), and the card's bound.  Returns them by kernel and shape."""
+    """Each kernel at the shapes its paths give it: its time, its plain
+    version's, a PyTorch call's where one computes the same function (SDPA
+    for flash attention; none exists for a linear recurrence or for this
+    blockwise int8 code), and the card's bound.  Returns them by kernel and
+    path."""
     import torch
     gen = torch.Generator(device=DEV).manual_seed(1)
-    hy = HYBRID_FLASH_SHAPE
-    sm = SLICE_SHAPE
-    jobs = {
-        ("flash_attention_fwd", "serve"): lambda: _time_flash(
-            gen, sm["b"], sm["h"], sm["kv"], sm["s"], sm["hd"], 0),
-        ("flash_attention_fwd", "serve-hybrid"): lambda: _time_flash(
-            gen, hy["b"], hy["h"], hy["kv"], hy["s"], hy["hd"], hy["window"]),
-        ("rglru_scan", "serve-hybrid"): lambda: _time_rglru(gen),
-        ("quantize_int8", "none"): lambda: _time_quant(gen, False),
-        ("dequantize_int8", "none"): lambda: _time_quant(gen, True),
-    }
+    jobs = {("flash_attention_fwd", path): (lambda c=c: _time_flash(gen, *c))
+            for path, c in flash_paths().items()}
+    jobs.update({("rglru_scan", path): (lambda c=c: _time_rglru(gen, *c))
+                 for path, c in rglru_paths().items()})
+    jobs[("quantize_int8", "none")] = lambda: _time_quant(gen, False)
+    jobs[("dequantize_int8", "none")] = lambda: _time_quant(gen, True)
     rows, ok = {}, True
     for key, job in jobs.items():
         fns, (bound_ms, bound_by, n_bytes, ops), lib_err = job()
@@ -706,18 +805,16 @@ def phase_timing(card_line):
                      "library_vs_kernel_max_abs_err": lib_err}
         ok = ok and (lib_err is None or lib_err <= TOL["bfloat16"])
         del fns
-    emit("timing", ok, card_line,
-         shapes={"flash_attention_fwd/serve": {
-                     "q": [sm["b"] * sm["h"], sm["s"], sm["hd"]],
-                     "kv": [sm["b"] * sm["kv"], sm["s"], sm["hd"]],
-                     "dtype": "bfloat16", "causal": True},
-                 "flash_attention_fwd/serve-hybrid": {
-                     "q": [hy["b"] * hy["h"], hy["s"], hy["hd"]],
-                     "kv": [hy["b"] * hy["kv"], hy["s"], hy["hd"]],
-                     "dtype": "bfloat16", "causal": True,
-                     "window": hy["window"]},
-                 "rglru_scan": {"a,x": list(RGLRU_SHAPE), "dtype": "float32"},
-                 "quantize_int8": {"n": QUANT_N, "block": QUANT_BLOCK}},
+    for path, case in rglru_paths().items():
+        rows[("rglru_scan", path)]["scratch"] = rglru_scratch(*case)
+    shapes = {f"flash_attention_fwd/{path}": {
+                  "q": [b * h, s, hd], "kv": [b * kv, s, hd], "dtype": dt,
+                  "causal": True, "window": window}
+              for path, (b, h, kv, s, hd, window, dt) in flash_paths().items()}
+    shapes.update({f"rglru_scan/{path}": {"a,x": [b, s, d], "dtype": dt}
+                   for path, (b, s, d, dt) in rglru_paths().items()})
+    shapes["quantize_int8"] = {"n": QUANT_N, "block": QUANT_BLOCK}
+    emit("timing", ok, card_line, shapes=shapes,
          kernels={f"{k}/{shape}": row for (k, shape), row in rows.items()})
     return rows
 
@@ -735,31 +832,38 @@ _KERNELS = {
 
 
 def kernels_line(errs, counts_by_path, timing) -> dict:
-    """One entry per kernel.  Flash attention runs on both serving paths:
-    its launches are their sum, its numbers those of the hybrid path's
-    shape (where its time goes), and ``at_shapes`` holds both shapes;
-    ``instantiations`` says which kernel each dtype runs."""
+    """One entry per kernel.  Its launches are the sum over the serving
+    paths; its numbers are those at the hybrid serving path's shape where
+    it runs there (where its time goes), and its error the largest on the
+    serving paths.  A kernel timed at more than one shape lists each in
+    ``at_shapes``; ``instantiations`` says which flash kernel each dtype
+    runs."""
     from repro_torch.kernels import flash_attention as fa
     entries = []
     for name, (src, replaces) in _KERNELS.items():
         by_path = {path: counts[name] for path, counts in counts_by_path.items()}
         shapes = {shape: row for (k, shape), row in timing.items() if k == name}
         main = shapes.get("serve-hybrid") or shapes["none"]
+        err = errs[name]
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{src}",
                  "replaces": replaces, "launches": sum(by_path.values()),
-                 "launches_by_path": by_path, "max_abs_err": errs[name],
+                 "launches_by_path": by_path,
+                 "max_abs_err": max(e for path, e in err.items()
+                                    if path in counts_by_path)
+                 if isinstance(err, dict) else err,
                  **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}}
         if name == "flash_attention_fwd":
-            entry["max_abs_err"] = max(errs[name].values())
             entry["instantiations"] = {str(dt).removeprefix("torch."): how
                                        for dt, how in fa.INSTANTIATIONS.items()}
+        if len(shapes) > 1:
             entry["at_shapes"] = {
-                shape: {"max_abs_err": errs[name][shape],
+                shape: {"max_abs_err": err[shape],
                         **{k: row[k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "tflops", "share_of_bound")}}
+                            "library_ms", "tflops", "tbps",
+                            "share_of_bound")}}
                 for shape, row in shapes.items()}
         entries.append(entry)
     return {"kernels": entries}

@@ -91,7 +91,8 @@ def smoke(monkeypatch):
         ref_flash_attention(q, k, v, causal=causal, window=window))
     monkeypatch.setattr(fa, "library_tiles",
                         lambda dtype, hd: fa.TILES[(dtype, hd)])
-    monkeypatch.setattr(rk, "rglru_scan", ref_rglru)
+    monkeypatch.setattr(rk, "rglru_scan",
+                        lambda a, x, h0, counts=None: ref_rglru(a, x, h0))
     monkeypatch.setattr(qk, "quantize_int8", ref_quantize_int8)
     monkeypatch.setattr(qk, "dequantize_int8", ref_dequantize_int8)
     main = serve.main
@@ -112,9 +113,13 @@ def smoke(monkeypatch):
 def test_chip_smoke_phases_on_cpu(smoke, capsys):
     card = "cpu rehearsal, 0 W"
     errs = smoke.phase_kernels(card)
-    assert errs == {"flash_attention_fwd": {"serve": 0.0, "serve-hybrid": 0.0},
-                    "rglru_scan": 0.0, "quantize_int8": 0.0,
-                    "dequantize_int8": 0.0}
+    assert errs == {"flash_attention_fwd": {"serve": 0.0, "serve-hybrid": 0.0,
+                                            "serve-parity": 0.0,
+                                            "serve-parity-hybrid": 0.0},
+                    "rglru_scan": {"serve-hybrid": 0.0,
+                                   "serve-parity-hybrid": 0.0,
+                                   "bf16-inputs": 0.0},
+                    "quantize_int8": 0.0, "dequantize_int8": 0.0}
     smoke.phase_serve_parity(card)
     counts = {"serve": smoke.phase_serve(card)}
     smoke.phase_serve_parity_hybrid(card)
@@ -143,6 +148,13 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     assert "tensor cores" in flash["instantiations"]["bfloat16"]
     assert all({"tflops", "share_of_bound"} <= set(at)
                for at in flash["at_shapes"].values())
+    rglru = line[1]
+    assert set(rglru["at_shapes"]) == {"serve-hybrid", "serve-parity-hybrid",
+                                       "bf16-inputs"}
+    assert rglru["max_abs_err"] == 0.0 and rglru["launches"] == 6
+    scratch = timing[("rglru_scan", "serve-hybrid")]["scratch"]
+    assert scratch["tiles"] == 2 * 2 * 1       # 2 chunks x 2 rows x 1 tile
+    assert {"serving_ms", "counting_ms"} <= set(scratch)
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith('{"phase"')]
     assert [ln["phase"] for ln in lines] == [
@@ -158,6 +170,14 @@ def test_chip_smoke_bounds_at_the_serving_shapes(smoke):
     assert (n_bytes, by) == (251_658_240 + 65_536, "bytes")
     assert ms == pytest.approx(n_bytes / 3.35e12 * 1e3)
     assert ms == pytest.approx(0.0751, abs=5e-5)
+    # B = 1 (serve-parity-hybrid): half of it
+    ms, by, n_bytes, _ = smoke.rglru_bound(1, 2560, 4096)
+    assert (n_bytes, by) == (125_829_120 + 32_768, "bytes")
+    assert ms == pytest.approx(0.0376, abs=5e-5)
+    # bf16 a and x, fp32 h: 2 + 2 + 4 bytes an element
+    ms, by, n_bytes, _ = smoke.rglru_bound(2, 2560, 4096, 2)
+    assert (n_bytes, by) == (167_772_160 + 65_536, "bytes")
+    assert ms == pytest.approx(0.0501, abs=5e-5)
     for dequant in (False, True):
         ms, by, n_bytes, _ = smoke.quant_bound(50_331_648, 256, dequant)
         assert (n_bytes, by) == (252_444_672, "bytes")
@@ -167,6 +187,20 @@ def test_chip_smoke_bounds_at_the_serving_shapes(smoke):
     assert (n_bytes, flops, by) == (89_128_960, 4 * 256 * 3_146_752 * 32,
                                     "operations")
     assert ms == pytest.approx(0.104, abs=5e-4)
+    # the fp32 kernel at serve-parity-hybrid's shape (B=1) on the CUDA
+    # cores: 5.16e10 FLOP at 67 TFLOP/s
+    ms, by, n_bytes, flops = smoke.flash_bound(16, 1, 2560, 256, 2048, 4,
+                                               smoke.FP32_FLOP_PER_S)
+    assert (n_bytes, flops, by) == (89_128_960, 4 * 256 * 3_146_752 * 16,
+                                    "operations")
+    assert flops == pytest.approx(5.16e10, rel=1e-3)
+    assert ms == pytest.approx(0.769, abs=5e-4)
+    # and at smollm-135m's serve-parity shape (B=2): operations bind too
+    ms, by, n_bytes, flops = smoke.flash_bound(18, 6, 128, 64, 0, 4,
+                                               smoke.FP32_FLOP_PER_S)
+    assert (n_bytes, flops, by) == (1_572_864, 4 * 64 * 8256 * 18,
+                                    "operations")
+    assert ms == pytest.approx(flops / 67e12 * 1e3)
 
 
 @pytest.mark.parametrize("shape,ms,tflops,share", [
@@ -204,3 +238,50 @@ def test_chip_smoke_reads_registers_and_spills_of_each_instantiation(smoke):
          "spill_stores": 0, "spill_loads": 0, "registers": 230},
         {"function": "_ZN13fa_fwd_kernelIfLi64EEEvPKT_",
          "spill_stores": 4, "spill_loads": 12, "registers": 64}]
+
+
+def test_chip_smoke_reads_shared_memory_where_ptxas_reports_it(smoke):
+    report = ("ptxas info    : Function properties for _ZN12_GLOBAL__N_117"
+              "rglru_scan_kernelIfEEvPKT_\n"
+              "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+              "loads\n"
+              "ptxas info    : Used 168 registers, used 1 barriers, 8 bytes "
+              "smem, 400 bytes cmem[0]\n")
+    assert smoke.ptxas_summary(report) == [
+        {"function": "_ZN12_GLOBAL__N_117rglru_scan_kernelIfEEvPKT_",
+         "spill_stores": 0, "spill_loads": 0, "registers": 168,
+         "smem_bytes": 8}]
+
+
+def test_chip_smoke_rglru_stress_cases_cross_the_tiles(smoke):
+    """The stress cases straddle the kernel's chunk, leave a ragged lane
+    tile, take B = 1 and S = 1, cross hundreds of chunks, and take a close
+    to 1 and exact zeros of a."""
+    plan = rk.rglru_plan(1, 1, 1)
+    cases = smoke.RGLRU_STRESS
+    assert {plan.chunk - 1, plan.chunk, plan.chunk + 1} <= {c[1] for c in cases}
+    assert any(d % plan.lanes for _, _, d, _ in cases)
+    assert any(d % 2 for _, _, d, _ in cases)      # bf16 rows not 4-aligned
+    assert any(kind == "offset" and d % 2 == 0 for _, _, d, kind in cases)
+    assert any(b == 1 for b, *_ in cases) and any(s == 1 for _, s, _, _ in cases)
+    assert any(rk.rglru_plan(b, s, d).n_chunks >= 200
+               for b, s, d, _ in cases)
+    assert {"near-one", "zeros"} <= {c[3] for c in cases}
+
+
+@pytest.mark.parametrize("dtype,misaligned", [("float32", 0),
+                                              ("bfloat16", 2)])
+def test_chip_smoke_offset_inputs_start_one_element_in(smoke, dtype,
+                                                       misaligned):
+    """The "offset" stress case hands the kernel contiguous views one
+    element into their storage: bf16 rows that are not 4-byte aligned
+    although D is even, so the kernel must copy them through registers."""
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    a, x, h0 = smoke._rglru_inputs(gen, 2, 3, 4, getattr(torch, dtype),
+                                   "offset")
+    for t in (a, x):
+        assert t.is_contiguous() and t.shape == (2, 3, 4)
+        assert t.storage_offset() == 1
+        assert t.data_ptr() % 4 == misaligned
+    assert h0.shape == (2, 4)

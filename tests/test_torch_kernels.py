@@ -187,6 +187,123 @@ def test_ref_rglru_matches_a_loop_over_time():
     np.testing.assert_allclose(hl.numpy(), want[-1], atol=1e-6)
 
 
+# The kernel's tile plan (csrc/rglru_scan.cu): ragged S and D, S below a
+# chunk, S = 1, the long-S stress shape and the two serving shapes.
+RGLRU_PLAN_SHAPES = [(1, 1, 1), (3, 1, 300), (2, 63, 64), (2, 64, 512),
+                     (2, 65, 512), (2, 300, 200), (1, 129, 1000),
+                     (1, 16384, 256), (1, 2560, 4096), (2, 2560, 4096)]
+
+
+def _plan_tile(plan, b, s, d, ticket):
+    """Tile ``ticket`` as the kernel maps it: chunk-major over columns
+    (batch row, lane tile).  Returns (b, t0, t1, d0, d1)."""
+    columns = b * plan.lane_tiles
+    chunk, column = divmod(ticket, columns)
+    bi, tile = divmod(column, plan.lane_tiles)
+    t0, d0 = chunk * plan.chunk, tile * plan.lanes
+    return bi, t0, min(t0 + plan.chunk, s), d0, min(d0 + plan.lanes, d)
+
+
+@pytest.mark.parametrize("b,s,d", RGLRU_PLAN_SHAPES)
+def test_rglru_plan_tiles_cover_every_element_once(b, s, d):
+    plan = trg.rglru_plan(b, s, d)
+    assert (plan.chunk, plan.lanes) == (trg.CHUNK, trg.LANES)
+    assert plan.n_chunks == -(-s // plan.chunk)
+    assert plan.lane_tiles == -(-d // plan.lanes)
+    assert plan.tiles == plan.n_chunks * b * plan.lane_tiles
+    seen = np.zeros((b, s, d), np.int8)
+    for ticket in range(plan.tiles):
+        bi, t0, t1, d0, d1 = _plan_tile(plan, b, s, d, ticket)
+        assert t0 < t1 and d0 < d1, "no tile is empty"
+        seen[bi, t0:t1, d0:d1] += 1
+        if t0 > 0:     # its predecessor in time holds an earlier ticket
+            assert _plan_tile(plan, b, s, d, ticket - b * plan.lane_tiles) \
+                == (bi, t0 - plan.chunk, t0, d0, d1)
+    assert (seen == 1).all()
+    # a u32 ticket and a flag a tile, zeroed per call; then an (A, X) pair
+    # and a carry-out a lane for all chunks but the last
+    carried = (plan.n_chunks - 1) * b * d
+    assert plan.flags_offset == 4
+    assert plan.flag_bytes == plan.flags_offset + 4 * plan.tiles
+    assert plan.agg_offset % 256 == 0
+    assert 0 <= plan.agg_offset - plan.flag_bytes < 256
+    assert plan.incl_offset == plan.agg_offset + 8 * carried
+    assert plan.scratch_bytes == plan.incl_offset + 4 * carried
+
+
+def test_rglru_plan_at_the_serving_shape():
+    """(2, 2560, 4096): 40 chunks x 64 columns; 3.8 MB of scratch, 1.5% of
+    the 251.7 MB the kernel must move."""
+    plan = trg.rglru_plan(2, 2560, 4096)
+    assert plan[:5] == (64, 128, 40, 32, 2560)      # chunk, lanes, tiles
+    assert (plan.flag_bytes, plan.agg_offset, plan.scratch_bytes) == (
+        10_244, 10_496, 10_496 + 12 * 39 * 8192)
+    assert trg.rglru_plan(1, 2560, 4096).tiles == 1280
+
+
+def test_rglru_plan_passes_down_as_the_kernels_struct():
+    """The launch hands the plan to the kernel as ten 64-bit integers in
+    the order of its ``Plan`` struct (csrc/rglru_scan.cu)."""
+    plan = trg.rglru_plan(2, 300, 200)
+    assert trg.RglruPlan._fields == (
+        "chunk", "lanes", "n_chunks", "lane_tiles", "tiles", "flags_offset",
+        "flag_bytes", "agg_offset", "incl_offset", "scratch_bytes")
+    struct = ("long long chunk, lanes, n_chunks, lane_tiles, tiles;\n"
+              "  long long flags_offset, flag_bytes, agg_offset, incl_offset, "
+              "scratch_bytes;")
+    assert struct in trg.SOURCE.read_text()
+    assert all(isinstance(v, int) and 0 <= v < 2 ** 63 for v in plan)
+
+
+def test_rglru_scratch_traffic_from_the_counters():
+    b, s, d = 2, 300, 200                 # 5 chunks x 2 lane tiles x 2 rows
+    plan = trg.rglru_plan(b, s, d)
+    counts = torch.tensor([1000, 30, 600])
+    got = trg.scratch_traffic(plan, b, d, counts)
+    carried = 4 * b * d                   # lanes of chunks 0..3
+    assert got == {"written_bytes": 4 * carried + 8 * 600 + 8 * 20,
+                   "read_bytes": 4 * carried + 8 * 1000 + 128 * 30,
+                   "atomic_bytes": 8 * 20, "lanes_folded": 1000,
+                   "lanes_published": 600, "flag_polls": 30}
+
+
+def _chunked_rglru(a, x, h0, chunk):
+    """The algebra the kernel implements, in plain torch fp32: per chunk the
+    product A of its a_t and its scan X from h = 0; the carry into a chunk
+    is the composition of every earlier chunk's (A, X) applied to h0, and
+    the chunk's outputs are recomputed from that carry."""
+    b, s, d = a.shape
+    h_seq = torch.empty(b, s, d)
+    carry = h0.clone()
+    for t0 in range(0, s, chunk):
+        prod, scan, h = torch.ones(b, d), torch.zeros(b, d), carry
+        for t in range(t0, min(t0 + chunk, s)):
+            scan = a[:, t] * scan + x[:, t]
+            prod = prod * a[:, t]
+            h = a[:, t] * h + x[:, t]
+            h_seq[:, t] = h
+        carry = prod * carry + scan
+    return h_seq, carry
+
+
+@pytest.mark.parametrize("b,s,d,pallas_chunk", [
+    (2, 300, 200, 100), (1, 129, 1000, 129), (3, 1, 300, 1), (2, 63, 64, 63),
+    (2, 65, 128, 65)])
+def test_rglru_chunk_composition_matches_jax(b, s, d, pallas_chunk):
+    """The chunk-aggregate composition (at the kernel's chunk) against the
+    JAX oracle and the interpreted Pallas kernel, at 1e-5 in fp32, on
+    ragged S and D, S below a chunk and S = 1."""
+    a, x, h0 = _rglru_inputs(7, b, s, d)
+    hs, hl = _chunked_rglru(*(torch.from_numpy(t) for t in (a, x, h0)),
+                            trg.CHUNK)
+    ker = jax_rglru_scan(*(jnp.asarray(t) for t in (a, x, h0)),
+                         chunk=pallas_chunk, block_d=d, interpret=True)
+    ref = jax_ref_rglru(*(jnp.asarray(t) for t in (a, x, h0)))
+    for want in (ker, ref):
+        np.testing.assert_allclose(hs.numpy(), _np(want[0]), atol=1e-5)
+        np.testing.assert_allclose(hl.numpy(), _np(want[1]), atol=1e-5)
+
+
 def test_rglru_refuses_grad():
     a, x, h0 = (torch.from_numpy(t) for t in _rglru_inputs(4, 1, 8, 16))
     with pytest.raises(NotImplementedError, match="training"):
