@@ -12,13 +12,14 @@ one JSON line each; any failure exits non-zero:
                  src/repro_torch/kernels/csrc into build/repro_torch_kernels,
                  one nvcc each, all at once; print registers, spills and
                  static shared memory of every kernel instantiation (ptxas),
-                 the RG-LRU kernel's apart, and fail if the bf16 flash
-                 kernels spill
+                 the RG-LRU kernel's apart, and fail if a flash kernel
+                 instantiation (fp32 or bf16, each head dim) spills
   kernels        each kernel through kernels/ops.py on CUDA against its plain
                  version on the same CUDA tensors: flash attention over the
                  sweep of tests/test_kernels.py, constant V, the shapes of
-                 both serving paths and bf16 cases that stress the tensor-core
-                 tiling, and its tile table against the library's; the
+                 both serving paths, bf16 cases that stress the tensor-core
+                 tiling and fp32 cases that stress the CUDA-core tiling, and
+                 its tile table against the library's; the
                  RG-LRU scan over its sweep, cases that stress its tiles and
                  carry (RGLRU_STRESS), the shapes of both hybrid paths,
                  linearity; int8
@@ -43,7 +44,9 @@ one JSON line each; any failure exits non-zero:
                  in fp32 at the serve-parity shapes, the RG-LRU scan at both
                  hybrid shapes and with bf16 inputs) against its plain
                  version, a PyTorch call where one computes the same
-                 function, and the card's bound; achieved TFLOP/s, TB/s and
+                 function (for flash: which SDPA backend ran, and its time
+                 when only the memory-efficient backend may run), and the
+                 card's bound; achieved TFLOP/s, TB/s and
                  share of the bound; the RG-LRU scratch traffic, from a
                  launch that counts it, and that launch's time
 
@@ -89,6 +92,21 @@ FLASH_BF16_CASES = [
     (4, 2, 256, 256, 64, True, 0, 8),     # q, k x 8: the running max moves
     (2, 1, 512, 512, 256, True, 64, 8),   # between tiles, and at the edge
     (16, 2, 256, 256, 128, True, 0, 1),   # hd 128, g = 8
+]
+# Their fp32 twins for the CUDA-core tiling (64-row q tiles, 64-key tiles),
+# held at TOL["float32"], and the sweep's non-causal Sq != Sk case at hd 256.
+# q and k x 8 are rounded to integers: every product and partial sum of
+# Q K^T is then exact in fp32 whatever the order, so the check sees the
+# softmax's rescaling and not the summation order, which on unrounded
+# N(0, 64) inputs alone moves the output by more than 2e-5 (tests/
+# test_torch_chip_smoke.py::test_chip_smoke_fp32_magnified_scores_are_exact).
+FLASH_FP32_CASES = [
+    (4, 2, 256, 256, 64, True, 100, 1),   # a window no tile size divides
+    (2, 1, 256, 256, 256, True, 100, 1),
+    (4, 2, 256, 256, 64, True, 0, 8),     # q, k x 8: the running max moves
+    (2, 1, 512, 512, 256, True, 64, 8),   # between tiles, and at the edge
+    (16, 2, 256, 256, 128, True, 0, 1),   # hd 128, g = 8
+    (2, 1, 128, 384, 256, False, 0, 1),   # not causal, Sq != Sk
 ]
 RGLRU_TOL = {"float32": 1e-4, "bfloat16": 2e-2}    # tests/test_kernels.py:99
 RGLRU_SWEEP = [(2, 256, 512), (1, 128, 1024), (3, 512, 256), (2, 128, 128)]
@@ -258,6 +276,22 @@ def ptxas_summary(report: str) -> list:
     return out
 
 
+def flash_instantiations(fns) -> dict:
+    """The flash kernels' instantiations in a ptxas summary, by kernel: the
+    fp32 ``fa_fwd_kernel`` and the bf16 ``fa_fwd_tc_kernel``, one per head
+    dim each."""
+    return {name: [f for f in fns if re.search(rf"\d{name}I", f["function"])]
+            for name in ("fa_fwd_kernel", "fa_fwd_tc_kernel")}
+
+
+def flash_spills(fns) -> list:
+    """The flash instantiations that spill (or whose spills ptxas did not
+    report), by mangled name."""
+    return [f["function"] for found in flash_instantiations(fns).values()
+            for f in found
+            if f.get("spill_stores", 1) or f.get("spill_loads", 1)]
+
+
 def phase_build(card_line):
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention, quantize, rglru
@@ -268,11 +302,12 @@ def phase_build(card_line):
     ptxas = {str(lib.relative_to(ROOT)): ptxas_summary(
         build.ptxas_report(lib).read_text()) for lib in libs}
     fns = [f for lib_fns in ptxas.values() for f in lib_fns]
-    tc = [f for f in fns if "fa_fwd_tc_kernel" in f["function"]]  # per hd
-    spills = [f["function"] for f in tc if f.get("spill_stores", 1)]
+    flash = flash_instantiations(fns)
+    spills = flash_spills(fns)
     emit("build", all(lib.exists() for lib in libs)
-         and len(tc) == len(flash_attention._HEAD_DIMS) and not spills,
-         card_line, build_s=build_s, ptxas=ptxas, bf16_flash_spills=spills,
+         and all(len(found) == len(flash_attention._HEAD_DIMS)
+                 for found in flash.values()) and not spills,
+         card_line, build_s=build_s, ptxas=ptxas, flash_spills=spills,
          rglru_ptxas=[f for f in fns if "rglru" in f["function"]])
 
 
@@ -295,6 +330,17 @@ def _check_flash_tiles():
     return bad
 
 
+def flash_qk(gen, dt, bh, bkv, sq, sk, hd, mag):
+    """q and k of a flash case, N(0, mag^2); in fp32 with mag > 1 rounded to
+    integers (see FLASH_FP32_CASES)."""
+    import torch
+    dtype = getattr(torch, dt)
+    q, k = _randn(gen, bh, sq, hd) * mag, _randn(gen, bkv, sk, hd) * mag
+    if dt == "float32" and mag > 1:
+        q, k = q.round(), k.round()
+    return q.to(dtype), k.to(dtype)
+
+
 def _check_flash(gen):
     import torch
     from repro_torch.kernels import ops
@@ -309,12 +355,12 @@ def _check_flash(gen):
               ("float32", hy["h"], hy["kv"], HYBRID_PARITY_PROMPT,
                HYBRID_PARITY_PROMPT, hy["hd"], True, hy["window"], 1)]
     cases += [("bfloat16",) + c for c in FLASH_BF16_CASES]
+    cases += [("float32",) + c for c in FLASH_FP32_CASES]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     bad, at_path = _check_flash_tiles(), {}
     for dt, bh, bkv, sq, sk, hd, causal, window, mag in cases:
         dtype = getattr(torch, dt)
-        q = (_randn(gen, bh, sq, hd) * mag).to(dtype)
-        k = (_randn(gen, bkv, sk, hd) * mag).to(dtype)
+        q, k = flash_qk(gen, dt, bh, bkv, sq, sk, hd, mag)
         v = _randn(gen, bkv, sk, hd, dtype=dtype)
         out = ops.flash_attention(q, k, v, causal, window)
         ref = ref_flash_attention(q, k, v, causal=causal, window=window)
@@ -677,11 +723,44 @@ def phase_serve_hybrid(card_line):
 
 # -------------------------------------------------------------- timing
 
-def _time_flash(gen, b, h, kv, s, hd, window, dtype="bfloat16"):
-    """bf16 runs on the tensor cores and fp32 on the CUDA cores: each is
-    bounded at its own peak rate."""
+def sdpa_route(args, kwargs) -> dict:
+    """Which SDPA backend runs a call: the dispatcher's own choice
+    (``torch._fused_sdp_choice``, where this torch has it) and each backend
+    that takes the call when it alone may run."""
+    import warnings
+
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    try:
+        choice = SDPBackend(torch._fused_sdp_choice(
+            *args, kwargs.get("attn_mask"), 0.0,
+            kwargs.get("is_causal", False),
+            enable_gqa=kwargs.get("enable_gqa", False))).name
+    except (AttributeError, TypeError, ValueError, RuntimeError):
+        choice = None
+    takes = []
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(*args, **kwargs)
+            takes.append(backend.name)
+        except RuntimeError:
+            pass
+    return {"dispatcher": choice, "backends_that_take_it": takes}
+
+
+def _time_flash(gen, b, h, kv, s, hd, window, dtype="bfloat16"):
+    """bf16 runs on the tensor cores and fp32 on the CUDA cores: each is
+    bounded at its own peak rate.  Beside SDPA as the dispatcher runs it,
+    SDPA with only the memory-efficient backend allowed, where it takes
+    the call, to show which backend the library time is."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import ref_flash_attention
     dt = getattr(torch, dtype)
@@ -690,29 +769,38 @@ def _time_flash(gen, b, h, kv, s, hd, window, dtype="bfloat16"):
     v = _randn(gen, b * kv, s, hd, dtype=dt)
     pos = torch.arange(s, device=DEV)
     mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
-
-    def library():
-        if not window:
-            return F.scaled_dot_product_attention(
-                q.view(b, h, s, hd), k.view(b, kv, s, hd),
-                v.view(b, kv, s, hd), is_causal=True, enable_gqa=True)
+    if not window:
+        args = (q.view(b, h, s, hd), k.view(b, kv, s, hd),
+                v.view(b, kv, s, hd))
+        kwargs = {"is_causal": True, "enable_gqa": True}
+    else:
         # kv heads broadcast to the q heads (a view for kv = 1), so that the
         # kernels that take a mask may run
         kx, vx = (t.view(b, kv, 1, s, hd).expand(b, kv, h // kv, s, hd)
                   .reshape(b, h, s, hd) for t in (k, v))
-        return F.scaled_dot_product_attention(q.view(b, h, s, hd), kx, vx,
-                                              attn_mask=mask)
+        args, kwargs = (q.view(b, h, s, hd), kx, vx), {"attn_mask": mask}
+
+    def library():
+        return F.scaled_dot_product_attention(*args, **kwargs)
+
+    def library_efficient():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return library()
 
     fns = {"plain": lambda: ref_flash_attention(q, k, v, causal=True,
                                                 window=window),
            "kernel": lambda: fa.flash_attention_fwd(q, k, v, causal=True,
                                                     window=window),
            "library": library}
+    route = sdpa_route(args, kwargs)
+    if "EFFICIENT_ATTENTION" in route["backends_that_take_it"]:
+        fns["library_efficient"] = library_efficient
     lib_err = float((library().reshape(b * h, s, hd).float()
                      - fns["kernel"]().float()).abs().max())
     peak = BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S
     return fns, flash_bound(b * h, b * kv, s, hd, window, dt.itemsize,
-                            peak), lib_err
+                            peak), {"library_vs_kernel_max_abs_err": lib_err,
+                                    "library_route": route}
 
 
 def _time_rglru(gen, b, s, d, dtype):
@@ -722,7 +810,7 @@ def _time_rglru(gen, b, s, d, dtype):
     a, x, h0 = _rglru_inputs(gen, b, s, d, getattr(torch, dtype))
     fns = {"plain": lambda: ref_rglru(a, x, h0),
            "kernel": lambda: rg.rglru_scan(a, x, h0)}
-    return fns, rglru_bound(b, s, d, a.element_size()), None
+    return fns, rglru_bound(b, s, d, a.element_size()), {}
 
 
 def rglru_scratch(b, s, d, dtype) -> dict:
@@ -761,7 +849,7 @@ def _time_quant(gen, dequant):
     else:
         fns = {"plain": lambda: ref_quantize_int8(x, block=QUANT_BLOCK),
                "kernel": lambda: qk.quantize_int8(x, block=QUANT_BLOCK)}
-    return fns, quant_bound(QUANT_N, QUANT_BLOCK, dequant), None
+    return fns, quant_bound(QUANT_N, QUANT_BLOCK, dequant), {}
 
 
 def flash_paths() -> dict:
@@ -783,7 +871,8 @@ def phase_timing(card_line):
     version's, a PyTorch call's where one computes the same function (SDPA
     for flash attention; none exists for a linear recurrence or for this
     blockwise int8 code), and the card's bound.  Returns them by kernel and
-    path."""
+    path.  The library's difference from the kernel is held to the bf16
+    tolerance in every row: a library is not held to the port's own."""
     import torch
     gen = torch.Generator(device=DEV).manual_seed(1)
     jobs = {("flash_attention_fwd", path): (lambda c=c: _time_flash(gen, *c))
@@ -794,7 +883,7 @@ def phase_timing(card_line):
     jobs[("dequantize_int8", "none")] = lambda: _time_quant(gen, True)
     rows, ok = {}, True
     for key, job in jobs.items():
-        fns, (bound_ms, bound_by, n_bytes, ops), lib_err = job()
+        fns, (bound_ms, bound_by, n_bytes, ops), extra = job()
         runs = in_turns(fns)
         ms = min(runs["kernel"])
         rows[key] = {"ms": ms, "plain_ms": min(runs["plain"]),
@@ -802,7 +891,12 @@ def phase_timing(card_line):
                      else None, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": n_bytes, "ops": ops,
                      **achieved(ms, ops, n_bytes, bound_ms), "runs_ms": runs,
-                     "library_vs_kernel_max_abs_err": lib_err}
+                     "library_vs_kernel_max_abs_err": None, **extra}
+        if key[0] == "flash_attention_fwd":
+            rows[key]["library_efficient_ms"] = (
+                min(runs["library_efficient"]) if "library_efficient" in runs
+                else None)
+        lib_err = rows[key]["library_vs_kernel_max_abs_err"]
         ok = ok and (lib_err is None or lib_err <= TOL["bfloat16"])
         del fns
     for path, case in rglru_paths().items():
@@ -862,8 +956,9 @@ def kernels_line(errs, counts_by_path, timing) -> dict:
                 shape: {"max_abs_err": err[shape],
                         **{k: row[k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "tflops", "tbps",
-                            "share_of_bound")}}
+                            "library_ms", "tflops", "tbps", "share_of_bound",
+                            "library_route", "library_efficient_ms",
+                            "library_vs_kernel_max_abs_err") if k in row}}
                 for shape, row in shapes.items()}
         entries.append(entry)
     return {"kernels": entries}

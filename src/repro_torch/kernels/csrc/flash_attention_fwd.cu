@@ -58,22 +58,59 @@
 //    hd 128: 99,328 (Q 32 KB + 64 KB ring); O 64 registers, S 32.
 //    hd  64:  41,984 (Q 8 KB + 32 KB ring); 128 threads; O 32, S 32.
 //
-// fp32: fa_fwd_kernel, on the CUDA cores, exact fp32 arithmetic (the fp32
-// serving-parity checks rely on it; neither bf16 nor TF32 tensor cores can
-// meet their 2e-5 tolerance).
-//  * One CUDA block per (64-row q tile, bh).  The TPU's sequential k grid
-//    axis becomes a loop inside the block that carries the running max, sum
-//    and accumulator in registers.
-//  * pl.when(relevant) becomes loop bounds: a causal q tile stops at the
-//    tile holding its last row, and tiles wholly before every row's window
-//    are skipped.
-//  * 8 warps, 8 q rows each.  Scores: lane j takes keys j and j + 32 of the
-//    tile; a K row is padded to hd + 1 floats so the 32 lanes read 32
-//    different banks.  The row max and sum are warp shuffles.  P.V: a lane
-//    owns output dims lane + 32 t, and each p_j is broadcast by a shuffle.
-//  * Shared memory is (64 hd + BK (hd + 1) + BK hd) floats: 49,408 B for
-//    hd 64 and 98,560 B for hd 128 (BK 64), 131,200 B for hd 256 (BK 32),
-//    taken as dynamic shared memory after cudaFuncSetAttribute.
+// fp32: fa_fwd_kernel, on the CUDA cores in exact fp32 FMA arithmetic: no
+// mma, wgmma or TF32 (the fp32 serving-parity checks rely on it; neither
+// bf16 nor TF32 tensor cores can meet their 2e-5 tolerance).
+//  What bounds it.  At recurrentgemma-9b's serve-parity shape (q
+//  16x2560x256, k/v 1x2560x256, fp32, causal, window 2048) the function
+//  moves 89 MB (27 us at 3.35 TB/s) and does 5.16e10 FLOP over the pairs
+//  the window keeps (0.77 ms at 67 TFLOP/s): it is bound by fp32
+//  operations.  At smollm-135m's (q 18x128x64, k/v 6x128x64, causal) it
+//  moves 1.57 MB and does 38 MFLOP (0.57 us): bound by operations on
+//  paper, in practice by the launch and one tile's latency.  On the CUDA
+//  cores the rate is set by what feeds the FMAs: an SM issues one warp
+//  instruction a clock per scheduler and its shared memory delivers 128
+//  bytes a clock against 128 FMA lanes, so every shared-memory load has
+//  to feed many FMAs.
+//  What the design does about it.
+//  * Both products are SIMT GEMMs tiled in registers.  A block takes 64 q
+//    rows and 8 warps and walks 64-key tiles.  S = Q K^T: a warp computes
+//    8 rows x 64 keys, a thread 4 rows x 4 keys as an outer product over
+//    hd, reading float4s along hd: 8 LDS.128 feed 64 FMAs.  O += P V: O
+//    (64 x hd) stays in registers across all key tiles, a thread 8 rows x
+//    hd/32 columns, 8 P values and hd/32 V values (float4s) feeding
+//    8 x hd/32 FMAs a key.  P goes from the S layout to the PV layout
+//    through a 64 x 64 tile in shared memory, stored transposed (keys x
+//    rows) so that a thread's 8 rows are two float4s.  Q and K rows are
+//    padded by 16 bytes, so the float4 reads of a warp fall in distinct
+//    banks or broadcast; V and P^T reads are conflict free without padding.
+//  * K and V stream through shared memory by 16-byte cp.async, each in its
+//    own buffer: K(j+1) is copied while tile j's softmax and PV run, V(j+1)
+//    while tile j+1's QK^T runs.  At hd 256 two stages of both would not
+//    fit beside Q at 64-key tiles; this split keeps one copy in flight
+//    behind every product.  Q is loaded once per block.
+//  * Online softmax in fp32 on the S fragments: a row lives in the 16
+//    lanes of a half-warp (four xor shuffles for its max); the row sum is
+//    kept per thread and reduced once at the end.  Scores stay in raw
+//    units and exp2 takes (s - m) * scale * log2(e): folding the scale
+//    into the scores instead would round each score apart, an error that
+//    grows with the logits and not with their distance from the row's
+//    max.  The mask value stays -1e30: a wholly
+//    masked first tile (a window's edge) gives p = 1 and is wiped by the
+//    next rescale, as in the reference; with -inf it would be NaN.
+//  * Tiles wholly above the diagonal or before every row's window are cut
+//    by the loop bounds; only tiles on the diagonal or the window's edge
+//    compute the mask.  Blocks start with the heaviest q tiles (those with
+//    the most k tiles) so that the last wave is short.
+//  Budget (bytes of shared memory; rows of Q and K padded to hd + 4
+//  floats, P^T to 68; 256 threads, one block an SM: at hd 256 for its
+//  shared memory, at every hd for its registers):
+//    hd 256: Q 64x260 (66,560) + K 64x260 (66,560) + V 64x256 (65,536) +
+//            P^T 64x68 (17,408) + row scales and sums (512) = 216,576 of
+//            the 232,448 a block may take; O is 64 registers a thread,
+//            S 16, the Q and K operands 32.
+//    hd 128: 118,272; O 32 registers.
+//    hd  64:  69,120; O 16 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,148 +120,8 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kBlockQ / kWarps;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-template <int HD>
-__host__ __device__ constexpr int block_k() { return HD >= 256 ? 32 : 64; }
-
-template <int HD>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBlockQ * HD + block_k<HD>() * (HD + 1) +
-                          block_k<HD>() * HD);
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFullMask, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFullMask, x, off);
-  return x;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-              int g, float scale, int causal, int window) {
-  constexpr int BK = block_k<HD>();
-  constexpr int KPL = BK / 32;  // keys per lane in the score step
-  constexpr int DPL = HD / 32;  // output dims per lane
-  constexpr int KS = HD + 1;    // padded K row stride
-  extern __shared__ float smem[];
-  float* qs = smem;             // kBlockQ x HD
-  float* ks = qs + kBlockQ * HD;  // BK x KS
-  float* vs = ks + BK * KS;     // BK x HD
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int bh = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const T* qb = q + ((size_t)bh * sq + q0) * HD;
-  const T* kb = k + (size_t)(bh / g) * sk * HD;
-  const T* vb = v + (size_t)(bh / g) * sk * HD;
-
-  for (int i = threadIdx.x; i < kBlockQ * HD; i += kThreads)
-    qs[i] = to_f32(qb[i]);
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[r][t] = 0.f;
-  }
-
-  const int n_k = sk / BK;
-  const int kt_end = causal ? min(n_k, (q0 + kBlockQ - 1) / BK + 1) : n_k;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    if (causal && window > 0 && k0 + BK - 1 <= q0 - window) continue;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = threadIdx.x; i < BK * HD; i += kThreads) {
-      const int row = i / HD;
-      const int col = i % HD;
-      ks[row * KS + col] = to_f32(kb[(size_t)(k0 + row) * HD + col]);
-      vs[i] = to_f32(vb[(size_t)k0 * HD + i]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp * kRowsPerWarp + r;
-      const int qpos = q0 + row;
-      const float* qr = qs + row * HD;
-      float s[KPL];
-      float m_cur = kNegInf;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int kj = lane + 32 * j;
-        const float* kr = ks + kj * KS;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-        dot *= scale;
-        if (causal) {
-          const int kpos = k0 + kj;
-          bool ok = kpos <= qpos;
-          if (window > 0) ok = ok && (kpos > qpos - window);
-          if (!ok) dot = kNegInf;
-        }
-        s[j] = dot;
-        m_cur = fmaxf(m_cur, dot);
-      }
-      m_cur = warp_max(m_cur);
-      const float m_new = fmaxf(m[r], m_cur);
-      float p_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        s[j] = expf(s[j] - m_new);
-        p_sum += s[j];
-      }
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p_sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) acc[r][t] *= alpha;
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        const float pj = __shfl_sync(kFullMask, s[j / 32], j % 32);
-        const float* vr = vs + j * HD + lane;
-#pragma unroll
-        for (int t = 0; t < DPL; ++t) acc[r][t] = fmaf(pj, vr[32 * t], acc[r][t]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = warp * kRowsPerWarp + r;
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = o + ((size_t)bh * sq + q0 + row) * HD + lane;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) orow[32 * t] = from_f32<T>(acc[r][t] / denom);
-  }
-}
-
 
 // ----------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -656,20 +553,290 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int sq, int sk, int g, float scale, int causal,
-                   int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+// ----------------------------------------------------------------------
+// fp32 on the CUDA cores
+// ----------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int kBlockQ = 64;   // q rows a block
+constexpr int kBlockK = 64;   // keys a tile
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kPStride = kBlockQ + 4;  // a row of P^T: 64 q rows + 16 B
+
+// Offsets (in floats) of the block's shared-memory tiles.
+template <int HD>
+struct Layout {
+  static constexpr int kQKStride = HD + 4;  // a Q or K row + 16 B
+  static constexpr int q = 0;                                  // 64 x (HD+4)
+  static constexpr int k = q + kBlockQ * kQKStride;            // 64 x (HD+4)
+  static constexpr int v = k + kBlockK * kQKStride;            // 64 x HD
+  static constexpr int p = v + kBlockK * HD;                   // 64 keys x 68
+  static constexpr int alpha = p + kBlockK * kPStride;         // 64 rescales
+  static constexpr int l = alpha + kBlockQ;                    // 64 row sums
+  static constexpr int floats = l + kBlockQ;
+};
+
+template <int HD>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) * Layout<HD>::floats;
+}
+
+// ROWS x HD floats from global memory (row stride HD) into shared memory
+// (row stride STRIDE), 16 bytes a thread per step, by cp.async.
+template <int ROWS, int HD, int STRIDE>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int tid) {
+  constexpr int kChunksPerRow = HD / 4;
+  static_assert(ROWS * kChunksPerRow % kThreads == 0,
+                "tile does not split evenly");
+#pragma unroll
+  for (int j = 0; j < ROWS * kChunksPerRow / kThreads; ++j) {
+    const int i = tid + j * kThreads;
+    const int row = i / kChunksPerRow;
+    const int col = (i % kChunksPerRow) * 4;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     tc::smem_u32(dst + row * STRIDE + col)),
+                 "l"(src + static_cast<size_t>(row) * HD + col)
+                 : "memory");
+  }
+}
+
+// VW consecutive floats (VW = 2 or 4) from shared or global memory.
+template <int VW>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x;
+    dst[1] = t.y;
+    dst[2] = t.z;
+    dst[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x;
+    dst[1] = t.y;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  if constexpr (VW == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2],
+                                                  src[3]);
+  else
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int sq,
+              int sk, int g, float scale_log2, int causal, int window) {
+  using L = Layout<HD>;
+  constexpr int BQ = kBlockQ, BK = kBlockK, QKS = L::kQKStride;
+  constexpr int VW = HD >= 128 ? 4 : 2;  // floats a V vector
+  constexpr int NV = HD / 32 / VW;       // V vectors a thread, per row
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem + L::q;
+  float* ks = smem + L::k;
+  float* vs = smem + L::v;
+  float* ps = smem + L::p;  // P^T: [key][q row]
+  float* alpha_s = smem + L::alpha;
+  float* l_s = smem + L::l;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const float* kb = k + static_cast<size_t>(bh / g) * sk * HD;
+  const float* vb = v + static_cast<size_t>(bh / g) * sk * HD;
+
+  // S layout: warp w has rows 8w..8w+7 of the tile; lane 16 rg + kg has
+  // rows s_row + 2i (i < 4) and keys kg + 16c (c < 4).  A row's 64 keys
+  // are the 16 lanes of one half-warp.
+  const int kg = lane & 15;
+  const int s_row = 8 * warp + (lane >> 4);
+  // O layout: warp w has rows 32 (w & 1) .. +31 and columns (w >> 1) HD/4
+  // .. +HD/4-1; lane 8 rg + cg has rows o_row + r (r < 8) and the NV
+  // vectors of VW columns at o_col + 8 VW t.
+  const int o_row = 32 * (warp & 1) + 8 * (lane >> 3);
+  const int o_col = (warp >> 1) * (HD / 4) + (lane & 7) * VW;
+
+  const int n_k = sk / BK;
+  const int kt_end = causal ? min(n_k, (q0 + BQ - 1) / BK + 1) : n_k;
+  const int kt_begin =
+      (causal && window > 0) ? max(0, (q0 - window + 1) / BK) : 0;
+
+  // Groups of copies, in order: Q + K(begin), V(begin), then each tile
+  // one K group and one V group (empty past the last tile).
+  load_tile<BQ, HD, QKS>(qs, q + (static_cast<size_t>(bh) * sq + q0) * HD,
+                         tid);
+  load_tile<BK, HD, QKS>(ks, kb + static_cast<size_t>(kt_begin) * BK * HD,
+                         tid);
+  tc::cp_async_commit();
+  load_tile<BK, HD, HD>(vs, vb + static_cast<size_t>(kt_begin) * BK * HD,
+                        tid);
+  tc::cp_async_commit();
+
+  float m[4], l[4];       // running max (raw score units), this lane's sum
+  float acc[8][NV * VW];  // O rows o_row + r
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < NV * VW; ++c) acc[r][c] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    const bool more = kt + 1 < kt_end;
+    tc::cp_async_wait_1();  // Q and K(kt) landed; V(kt) may be in flight
+    __syncthreads();
+
+    // S = Q K^T, 4 x 4 a thread, float4 steps along hd
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (s_row + 2 * i) * QKS +
+                                                 d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(ks + (kg + 16 * c) * QKS + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(qv[i].x, kv[c].x, s[i][c]);
+          s[i][c] = fmaf(qv[i].y, kv[c].y, s[i][c]);
+          s[i][c] = fmaf(qv[i].z, kv[c].z, s[i][c]);
+          s[i][c] = fmaf(qv[i].w, kv[c].w, s[i][c]);
+        }
+    }
+    __syncthreads();  // every warp is done with K(kt)
+    if (more)
+      load_tile<BK, HD, QKS>(
+          ks, kb + static_cast<size_t>(kt + 1) * BK * HD, tid);
+    tc::cp_async_commit();
+
+    // online softmax; only tiles on the diagonal or a window's edge mask
+    const bool need_mask =
+        causal &&
+        (k0 + BK - 1 > q0 || (window > 0 && k0 <= q0 + BQ - 1 - window));
+    if (need_mask) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qpos = q0 + s_row + 2 * i;
+          const int kpos = k0 + kg + 16 * c;
+          if (kpos > qpos || (window > 0 && kpos <= qpos - window))
+            s[i][c] = kNegInf;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f((m[i] - m_new) * scale_log2);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = exp2f((s[i][c] - m_new) * scale_log2);
+        sum += p;
+        ps[(kg + 16 * c) * kPStride + s_row + 2 * i] = p;
+      }
+      l[i] = l[i] * alpha + sum;
+      if (kg == 0) alpha_s[s_row + 2 * i] = alpha;
+    }
+    tc::cp_async_wait_1();  // V(kt) landed; K(kt + 1) may be in flight
+    __syncthreads();        // P, the rescales and V(kt) are visible
+
+    // O = O alpha + P V, 8 rows x NV VW columns a thread, one key a step
+    float rescale[8];
+    load_vec<4>(rescale, alpha_s + o_row);
+    load_vec<4>(rescale + 4, alpha_s + o_row + 4);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < NV * VW; ++c) acc[r][c] *= rescale[r];
+#pragma unroll 8
+    for (int j = 0; j < BK; ++j) {
+      float p[8], vv[NV * VW];
+      load_vec<4>(p, ps + j * kPStride + o_row);
+      load_vec<4>(p + 4, ps + j * kPStride + o_row + 4);
+#pragma unroll
+      for (int t = 0; t < NV; ++t)
+        load_vec<VW>(vv + t * VW, vs + j * HD + o_col + 8 * VW * t);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < NV * VW; ++c)
+          acc[r][c] = fmaf(p[r], vv[c], acc[r][c]);
+    }
+    __syncthreads();  // every warp is done with V(kt), P and the rescales
+    if (more)
+      load_tile<BK, HD, HD>(vs, vb + static_cast<size_t>(kt + 1) * BK * HD,
+                            tid);
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float t = l[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      t += __shfl_xor_sync(kFullMask, t, off);
+    if (kg == 0) l_s[s_row + 2 * i] = fmaxf(t, 1e-30f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float denom = l_s[o_row + r];
+    float* orow = o + (static_cast<size_t>(bh) * sq + q0 + o_row + r) * HD;
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      float out[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) out[e] = acc[r][t * VW + e] / denom;
+      store_vec<VW>(orow + o_col + 8 * VW * t, out);
+    }
+  }
+}
+
+}  // namespace simt
+
+template <int HD>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
+                        int bh, int sq, int sk, int g, float scale,
+                        int causal, int window, cudaStream_t stream) {
+  constexpr size_t smem = simt::smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      simt::fa_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(sq / kBlockQ, bh);
-  fa_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, g, scale, causal,
-      window);
+  const dim3 grid(bh, sq / simt::kBlockQ);
+  const float scale_log2 =
+      static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+  simt::fa_fwd_kernel<HD><<<grid, simt::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, g,
+      scale_log2, causal, window);
   return cudaGetLastError();
 }
 
@@ -697,8 +864,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      float scale, int causal, int window, cudaStream_t s) {
 #define FA_CASE(HD)                                                          \
   case HD:                                                                   \
-    return dtype == 0 ? launch<float, HD>(q, k, v, o, bh, sq, sk, g, scale,  \
-                                          causal, window, s)                 \
+    return dtype == 0 ? launch_fp32<HD>(q, k, v, o, bh, sq, sk, g, scale,   \
+                                        causal, window, s)                   \
                       : launch_tc<HD>(q, k, v, o, bh, sq, sk, g, scale,      \
                                       causal, window, s);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
@@ -720,14 +887,14 @@ extern "C" {
 // checks shapes against the kernel's own; 0 for what no kernel takes.
 int fa_block_q(int dtype, int hd) {
   if (hd != 64 && hd != 128 && hd != 256) return 0;
-  if (dtype == 0) return kBlockQ;
+  if (dtype == 0) return simt::kBlockQ;
   if (dtype == 1) return hd == 64 ? tc::block_q<64>() : tc::block_q<128>();
   return 0;
 }
 
 int fa_block_k(int dtype, int hd) {
   if (hd != 64 && hd != 128 && hd != 256) return 0;
-  if (dtype == 0) return hd >= 256 ? block_k<256>() : block_k<64>();
+  if (dtype == 0) return simt::kBlockK;
   if (dtype == 1) return tc::kBlockK;
   return 0;
 }

@@ -3,7 +3,9 @@ kernels in ``csrc/flash_attention_fwd.cu`` (twin of
 ``repro.kernels.flash_attention``; the source's header says what bounds it
 and how it is laid out).  One C entry point, two kernels chosen by dtype:
 bf16 runs on the tensor cores (wgmma), fp32 on the CUDA cores in exact
-fp32 arithmetic.
+fp32 FMA arithmetic (no mma, wgmma or TF32), both products tiled in
+registers as SIMT GEMMs over 64-row q tiles and 64-key tiles.  Both kernels
+copy 16-byte chunks, so every input must start on a 16-byte boundary.
 
 The library is built by ``kernels/build.py`` at first use and loaded with
 ``ctypes``.  Nothing is compiled or loaded when this module is imported.
@@ -21,13 +23,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 #: Which kernel each dtype runs.
 INSTANTIATIONS = {torch.bfloat16: "tensor cores (wgmma, bf16 in, fp32 acc)",
-                  torch.float32: "CUDA cores (fp32 FMA)"}
+                  torch.float32: "CUDA cores (fp32 FMA, register-tiled)"}
 #: (block_q, block_k) of the kernel each (dtype, head_dim) runs: Sq must be a
 #: multiple of block_q and Sk of block_k.  The library reports its own
 #: (``fa_block_q``/``fa_block_k``), which launches are checked against and
 #: chip_smoke.py holds this table to.
 TILES = {(torch.float32, 64): (64, 64), (torch.float32, 128): (64, 64),
-         (torch.float32, 256): (64, 32),
+         (torch.float32, 256): (64, 64),
          (torch.bfloat16, 64): (64, 64), (torch.bfloat16, 128): (128, 64),
          (torch.bfloat16, 256): (128, 64)}
 _lib = None
@@ -73,9 +75,9 @@ def _check(q, k, v) -> None:
         raise ValueError(f"BH={bh} must be a multiple of BKV={bkv} and "
                          f"at most 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"bf16 {name} must start on a 16-byte boundary "
-                             f"(the kernel copies 16-byte chunks)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(the kernels copy 16-byte chunks)")
 
 
 def library_tiles(dtype, hd: int) -> tuple:

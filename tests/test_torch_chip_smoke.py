@@ -226,18 +226,68 @@ ptxas info    : Compiling entry function '_ZN2tc16fa_fwd_tc_kernelILi256EEEvPK13
 ptxas info    : Function properties for _ZN2tc16fa_fwd_tc_kernelILi256EEEvPK13__nv_bfloat16
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 230 registers, used 1 barriers
-ptxas info    : Function properties for _ZN13fa_fwd_kernelIfLi64EEEvPKT_
+ptxas info    : Function properties for _ZN4simt13fa_fwd_kernelILi256EEEvPKfS1_S1_Pfiiifii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 248 registers, used 1 barriers
+ptxas info    : Function properties for _ZN4simt13fa_fwd_kernelILi64EEEvPKfS1_S1_Pfiiifii
     8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers
 """
 
 
 def test_chip_smoke_reads_registers_and_spills_of_each_instantiation(smoke):
-    assert smoke.ptxas_summary(PTXAS) == [
+    """The build phase fails on a spilling fp32 instantiation as on a bf16
+    one."""
+    fns = smoke.ptxas_summary(PTXAS)
+    assert fns == [
         {"function": "_ZN2tc16fa_fwd_tc_kernelILi256EEEvPK13__nv_bfloat16",
          "spill_stores": 0, "spill_loads": 0, "registers": 230},
-        {"function": "_ZN13fa_fwd_kernelIfLi64EEEvPKT_",
+        {"function": "_ZN4simt13fa_fwd_kernelILi256EEEvPKfS1_S1_Pfiiifii",
+         "spill_stores": 0, "spill_loads": 0, "registers": 248},
+        {"function": "_ZN4simt13fa_fwd_kernelILi64EEEvPKfS1_S1_Pfiiifii",
          "spill_stores": 4, "spill_loads": 12, "registers": 64}]
+    assert smoke.flash_spills(fns) == [
+        "_ZN4simt13fa_fwd_kernelILi64EEEvPKfS1_S1_Pfiiifii"]
+    found = smoke.flash_instantiations(fns)
+    assert [len(found["fa_fwd_kernel"]),
+            len(found["fa_fwd_tc_kernel"])] == [2, 1]
+
+
+def _flash_report(spilling):
+    """A ptxas report of every flash instantiation, as nvcc names them,
+    where only ``spilling`` = (kernel, hd) spills."""
+    lines = []
+    for kernel, space, args in (
+            ("fa_fwd_kernel", "4simt", "PKfS3_S3_Pfiiifii"),
+            ("fa_fwd_tc_kernel", "2tc", "PK13__nv_bfloat16S4_S4_PS2_iiifii")):
+        for hd in (64, 128, 256):
+            spill = 8 if (kernel, hd) == spilling else 0
+            lines += [f"ptxas info    : Function properties for "
+                      f"_ZN55_GLOBAL__N"
+                      f"__a0d8e095_22_flash_attention_fwd_cu_f72066a0{space}"
+                      f"{len(kernel)}{kernel}ILi{hd}EEEv{args}",
+                      f"    0 bytes stack frame, {spill} bytes spill stores, "
+                      f"{spill} bytes spill loads",
+                      "ptxas info    : Used 200 registers, used 1 barriers"]
+    return "\n".join(lines) + "\n"
+
+
+@pytest.mark.parametrize("spilling", [None] + [
+    (kernel, hd) for kernel in ("fa_fwd_kernel", "fa_fwd_tc_kernel")
+    for hd in (64, 128, 256)], ids=str)
+def test_chip_smoke_build_gate_names_each_spilling_flash_kernel(smoke,
+                                                                spilling):
+    fns = smoke.ptxas_summary(_flash_report(spilling))
+    found = smoke.flash_instantiations(fns)
+    assert {k: len(v) for k, v in found.items()} == {"fa_fwd_kernel": 3,
+                                                    "fa_fwd_tc_kernel": 3}
+    spills = smoke.flash_spills(fns)
+    if spilling is None:
+        assert spills == []
+    else:
+        kernel, hd = spilling
+        assert len(spills) == 1
+        assert f"{len(kernel)}{kernel}ILi{hd}E" in spills[0]
 
 
 def test_chip_smoke_reads_shared_memory_where_ptxas_reports_it(smoke):
@@ -285,3 +335,113 @@ def test_chip_smoke_offset_inputs_start_one_element_in(smoke, dtype,
         assert t.storage_offset() == 1
         assert t.data_ptr() % 4 == misaligned
     assert h0.shape == (2, 4)
+
+
+def _tile_kinds(sq, sk, causal, window, block_q, block_k) -> set:
+    """What the q tiles x k tiles of one flash case meet, from its mask
+    alone: tiles wholly masked ("skipped"), wholly kept ("full"), cut by the
+    causal diagonal ("diagonal") or by a window's edge and not the diagonal
+    ("window_edge"), and rows wholly masked in the first tile their q tile
+    computes ("row_masked_in_first_tile": the -1e30 rows that the next
+    rescale wipes)."""
+    import torch
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    ok = torch.ones(sq, sk, dtype=torch.bool)
+    early = torch.zeros(sq, sk, dtype=torch.bool)
+    if causal:
+        ok = kpos <= qpos
+        if window:
+            early = kpos <= qpos - window
+            ok &= ~early
+    kinds = set()
+    for q0 in range(0, sq, block_q):
+        first = True
+        for k0 in range(0, sk, block_k):
+            t = ok[q0:q0 + block_q, k0:k0 + block_k]
+            if not t.any():
+                kinds.add("skipped")
+                continue
+            if t.all():
+                kinds.add("full")
+            elif (kpos[:, k0:k0 + block_k] > qpos[q0:q0 + block_q]).any():
+                kinds.add("diagonal")
+            elif early[q0:q0 + block_q, k0:k0 + block_k].any():
+                kinds.add("window_edge")
+            if first and (~t.any(dim=1)).any():
+                kinds.add("row_masked_in_first_tile")
+            first = False
+    return kinds
+
+
+def test_chip_smoke_fp32_flash_cases_cross_the_tiles(smoke):
+    """FLASH_FP32_CASES, under the fp32 kernel's tiles, take every head dim,
+    cross the diagonal and a window's edge at tiles that are not the
+    diagonal, skip tiles before the window, leave rows wholly masked in the
+    first tile a q tile computes, and take a window no tile divides, g = 8,
+    magnified scores over several key tiles and the non-causal Sq != Sk."""
+    import torch
+    cases = smoke.FLASH_FP32_CASES
+    kinds = set()
+    for bh, bkv, sq, sk, hd, causal, window, mag in cases:
+        block_q, block_k = fa.TILES[(torch.float32, hd)]
+        assert sq % block_q == 0 and sk % block_k == 0
+        kinds |= _tile_kinds(sq, sk, causal, window, block_q, block_k)
+    assert kinds == {"skipped", "full", "diagonal", "window_edge",
+                     "row_masked_in_first_tile"}
+    assert {c[4] for c in cases} == set(fa._HEAD_DIMS)
+    tiles = {hd: fa.TILES[(torch.float32, hd)] for hd in fa._HEAD_DIMS}
+    assert any(w and w % tiles[hd][0] and w % tiles[hd][1]
+               for *_, hd, _, w, _ in cases)
+    assert any(hd == 256 and w for *_, hd, _, w, _ in cases)
+    assert any(bh // bkv == 8 and hd == 128
+               for bh, bkv, _, _, hd, _, _, _ in cases)
+    assert any(mag > 1 and sk >= 2 * tiles[hd][1] and sq > tiles[hd][0]
+               for _, _, sq, sk, hd, _, _, mag in cases)
+    assert any(not causal and sq != sk
+               for _, _, sq, sk, _, causal, _, _ in cases)
+
+
+def test_chip_smoke_fp32_magnified_scores_are_exact(smoke):
+    """The magnified fp32 cases round q and k to integers, so that Q K^T
+    is exact in fp32 in any summation order; unrounded, the plain fp32
+    version alone is more than the 2e-5 tolerance from float64."""
+    import torch
+    worst_unrounded = 0.0
+    for bh, bkv, sq, sk, hd, causal, window, mag in smoke.FLASH_FP32_CASES:
+        if mag == 1:
+            continue
+        gen = torch.Generator().manual_seed(0)
+        q, k = smoke.flash_qk(gen, "float32", bh, bkv, sq, sk, hd, mag)
+        g = bh // bkv
+        s32 = torch.einsum("bgqd,bkd->bgqk", q.view(bkv, g, sq, hd), k)
+        s64 = torch.einsum("bgqd,bkd->bgqk", q.view(bkv, g, sq, hd).double(),
+                           k.double())
+        assert torch.equal(s32.double(), s64)
+        gen = torch.Generator().manual_seed(0)
+        q, k = (smoke._randn(gen, *shape) * mag
+                for shape in ((bh, sq, hd), (bkv, sk, hd)))
+        v = smoke._randn(gen, bkv, sk, hd)
+        plain = ref_flash_attention(q, k, v, causal=causal, window=window)
+        exact = _exact_attention(q, k, v, causal, window)
+        worst_unrounded = max(worst_unrounded,
+                              float((plain.double() - exact).abs().max()))
+    assert worst_unrounded > smoke.TOL["float32"]
+
+
+def _exact_attention(q, k, v, causal, window):
+    """The same function as ref_flash_attention, in float64 throughout."""
+    import torch
+    bh, sq, hd = q.shape
+    bkv, sk, _ = k.shape
+    s = torch.einsum("bgqd,bkd->bgqk", q.double().view(bkv, bh // bkv, sq, hd),
+                     k.double()) * hd ** -0.5
+    if causal:
+        qpos = torch.arange(sq)[:, None]
+        kpos = torch.arange(sk)[None, :]
+        ok = kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, -1e30)
+    return torch.einsum("bgqk,bkd->bgqd", torch.softmax(s, -1),
+                        v.double()).reshape(bh, sq, hd)

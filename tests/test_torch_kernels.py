@@ -5,6 +5,8 @@ kernel's plain PyTorch version; it is held against the JAX oracle and the
 Pallas kernel in interpret mode (as tests/test_kernels.py runs it), on the
 same numpy inputs.  The CUDA kernel itself is held against the plain
 version on the card by chip_smoke.py."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +99,79 @@ def test_flash_tiles_divide_every_length_flash_ok_admits(dtype, hd):
     assert block_q > 0 and 128 % block_q == 0
     assert block_k > 0 and 128 % block_k == 0
     assert dtype in tfa.INSTANTIATIONS
+
+
+def _fp32_kernel_model(q, k, v, causal, window, block_q, block_k):
+    """The fp32 CUDA kernel's algorithm (csrc/flash_attention_fwd.cu,
+    simt::fa_fwd_kernel) on the CPU, tile by tile: its loop bounds, the mask
+    only on the tiles its need_mask picks, raw scores and exp2((s - m)
+    scale log2 e), the -1e30 mask value, the sum clamped at 1e-30.  Asserts
+    on the way that the bounds skip only wholly masked tiles and that every
+    tile left unmasked is wholly kept."""
+    bh, sq, hd = q.shape
+    bkv, sk, _ = k.shape
+    kx, vx = (t.repeat_interleave(bh // bkv, 0) for t in (k, v))
+    scale_log2 = hd ** -0.5 * math.log2(math.e)
+    n_k = sk // block_k
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, block_q):
+        kt_end = min(n_k, (q0 + block_q - 1) // block_k + 1) if causal else n_k
+        # C++ division truncates toward zero
+        kt_begin = (max(0, int((q0 - window + 1) / block_k))
+                    if causal and window else 0)
+        qpos = q0 + torch.arange(block_q)[:, None]
+        m = torch.full((bh, block_q), -1e30)
+        l = torch.zeros(bh, block_q)
+        acc = torch.zeros(bh, block_q, hd)
+        for kt in range(n_k):
+            k0 = kt * block_k
+            kpos = k0 + torch.arange(block_k)[None, :]
+            ok = torch.ones(block_q, block_k, dtype=torch.bool)
+            if causal:
+                ok = kpos <= qpos
+                if window:
+                    ok &= kpos > qpos - window
+            if not kt_begin <= kt < kt_end:
+                assert not ok.any(), (q0, k0)
+                continue
+            need_mask = causal and (k0 + block_k - 1 > q0 or (
+                window > 0 and k0 <= q0 + block_q - 1 - window))
+            assert need_mask or ok.all(), (q0, k0)
+            s = torch.einsum("bqd,bkd->bqk", q[:, q0:q0 + block_q],
+                             kx[:, k0:k0 + block_k])
+            if need_mask:
+                s = torch.where(ok, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2((m - m_new) * scale_log2)
+            p = torch.exp2((s - m_new[..., None]) * scale_log2)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ vx[:, k0:k0 + block_k]
+            m = m_new
+        out[:, q0:q0 + block_q] = acc / l.clamp_min(1e-30)[..., None]
+    return out
+
+
+# The sweep, and cases for the fp32 kernel's 64 x 64 tiles: a window no
+# tile divides (rows wholly masked in a q tile's first key tile), g = 8,
+# and q, k x 8 on an integer grid (the running max jumps between tiles).
+FP32_TILE_CASES = [c + (1,) for c in SWEEP] + [
+    (4, 2, 256, 256, 64, True, 100, 1), (2, 1, 256, 256, 256, True, 100, 1),
+    (16, 2, 256, 256, 128, True, 0, 1), (4, 2, 256, 256, 64, True, 0, 8),
+    (2, 1, 512, 512, 256, True, 64, 8)]
+
+
+@pytest.mark.parametrize("bh,bkv,sq,sk,hd,causal,window,mag", FP32_TILE_CASES)
+def test_fp32_kernel_tile_schedule_matches_jax(bh, bkv, sq, sk, hd, causal,
+                                               window, mag):
+    q, k, v = _qkv(4, bh, bkv, sq, sk, hd)
+    if mag > 1:
+        q, k = np.round(q * mag), np.round(k * mag)
+    block_q, block_k = tfa.TILES[(torch.float32, hd)]
+    got = _fp32_kernel_model(*(torch.from_numpy(a) for a in (q, k, v)),
+                             causal, window, block_q, block_k)
+    ref = jax_ref_fa(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                     window=window)
+    np.testing.assert_allclose(got.numpy(), _np(ref), atol=TOL["float32"])
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
