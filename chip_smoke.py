@@ -31,7 +31,12 @@ one JSON line each; any failure exits non-zero:
                  tokens end to end at a 2-layer cut
   serve          the repro_torch.launch.serve path, smollm-135m at full
                  width, bf16, B=4, prompt 128, 32 new tokens: a main path,
-                 its launch count
+                 its launch count; with --snapshot-dir, and the serving
+                 snapshot it writes validates and lists the payload's leaves
+  checkpoint     full-width smollm-135m's fp32 params on the card through
+                 CheckpointManager: save, wait, restore onto the card,
+                 bit-equal leaves; an unchanged re-save writes 0 bytes; the
+                 stage times, bytes and codec
   serve-parity-hybrid
                  full-width recurrentgemma-9b (seeded random weights), fp32,
                  B=1, prompt 2560 (past the 2048 window): kernels vs plain
@@ -40,6 +45,12 @@ one JSON line each; any failure exits non-zero:
   serve-hybrid   the repro_torch.launch.serve path, recurrentgemma-9b at full
                  width, bf16, B=2, prompt 2560, 32 new tokens: the other main
                  path; 12 flash and 26 RG-LRU launches, peak memory
+  snapshot-hybrid
+                 full-width recurrentgemma-9b, bf16, B=2, prompt 2560, 32 new
+                 tokens through the kernels, then snapshot_service; 8 more
+                 decode steps on the live engine, and 8 from the snapshot
+                 restored onto the card: restored leaves bit-equal to the
+                 host copy taken at snapshot time, equal tokens
   timing         every kernel at the shapes its paths give it (flash also
                  in fp32 at the serve-parity shapes, the RG-LRU scan at both
                  hybrid shapes and with bf16 inputs) against its plain
@@ -60,6 +71,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +84,7 @@ HYBRID = "recurrentgemma-9b"                       # served at full width
 HYBRID_CUT_LAYERS = 5                              # one unit + the 2-block tail
 HYBRID_PARITY_PROMPT = 2560                        # > window, multiple of 128
 HYBRID_SERVE = dict(batch=2, prompt=2560, new_tokens=32)
+SNAPSHOT_CONTINUE = 8                              # decode steps after one
 # recurrentgemma-9b prefill at B=2: 32 query heads over 2 kv heads, hd 256
 HYBRID_FLASH_SHAPE = dict(b=2, h=16, kv=1, s=2560, hd=256, window=2048)
 RGLRU_SHAPE = (2, 2560, 4096)                      # its rglru prefill, B=2
@@ -671,15 +684,17 @@ def phase_serve_parity_hybrid(card_line):
          expected_launches=want, peak_bytes=peak_bytes(), **out)
 
 
-def _serve(arch, batch, prompt, new_tokens):
+def _serve(arch, batch, prompt, new_tokens, snapshot_dir=None):
     """One round of the serving CLI, with every count set to 0 just before
     and read just after it."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+            "--new-tokens", str(new_tokens)]
+    if snapshot_dir is not None:
+        argv += ["--snapshot-dir", str(snapshot_dir)]
     ops.reset_launch_counts()                   # the main path starts here
-    rows = serve.main(["--arch", arch, "--batch", str(batch),
-                       "--prompt-len", str(prompt),
-                       "--new-tokens", str(new_tokens)])
+    rows = serve.main(argv)
     counts = {"flash_attention_fwd": ops.FLASH_LAUNCHES,   # ... and ends here
               "rglru_scan": ops.RGLRU_LAUNCHES,
               "quantize_int8": ops.QUANT_LAUNCHES,
@@ -687,18 +702,113 @@ def _serve(arch, batch, prompt, new_tokens):
     return rows[-1], counts
 
 
-def phase_serve(card_line):
+def _payload_leaves(arch, batch, max_seq) -> int:
+    """Leaves of a serving snapshot: the cache's, pos and generated."""
     from repro_torch.configs import get_arch
-    row, counts = _serve(ARCH, 4, 128, 32)
+    from repro_torch.models.params import is_pm, tree_leaves
+    from repro_torch.models.registry import get_api
+    cfg = get_arch(arch)
+    defs = get_api(cfg).cache_defs(cfg, batch, max_seq)
+    return len(tree_leaves(defs, is_leaf=is_pm)) + 2
+
+
+def phase_serve(card_line):
+    from repro_torch.checkpoint import serialization as ser
+    from repro_torch.checkpoint.resharding import plan_summary
+    from repro_torch.configs import get_arch
+    with tempfile.TemporaryDirectory() as snap:
+        row, counts = _serve(ARCH, 4, 128, 32, snap)
+        step = Path(snap) / "step_0000000000"
+        valid = ser.validate(step, deep=True)
+        plan = plan_summary(step)
     n_layers = get_arch(ARCH).n_layers        # one launch per layer
+    want_leaves = _payload_leaves(ARCH, 4, 128 + 32 + 8)
     ok = (counts["flash_attention_fwd"] == n_layers
           and row["flash_launches"] == n_layers
-          and row["prefill_s"] > 0 and row["decode_s"] > 0)
+          and row["prefill_s"] > 0 and row["decode_s"] > 0
+          and valid and plan["n_leaves"] == want_leaves)
     emit("serve", ok, card_line, arch=ARCH, batch=4, prompt_len=128,
          new_tokens=32, dtype="bfloat16", prefill_s=row["prefill_s"],
          decode_s=row["decode_s"], tok_per_s=row["tok_per_s"],
-         flash_launches=counts["flash_attention_fwd"], launches=counts)
+         flash_launches=counts["flash_attention_fwd"], launches=counts,
+         snapshot={"valid": valid, "n_leaves": plan["n_leaves"],
+                   "expected_leaves": want_leaves,
+                   "approx_bytes": plan["approx_bytes"],
+                   "compressed_bytes": plan.get("compressed_bytes")})
     return counts
+
+
+_SAVE_STATS = ("drain_s", "snapshot_s", "write_s", "hash_s", "compress_s",
+               "io_s", "last_bytes_written", "last_bytes_referenced")
+_RESTORE_STATS = ("restore_io_s", "restore_decompress_s", "restore_device_s")
+
+
+def _leaves_equal(a, b) -> bool:
+    """Two trees of tensors (or numpy arrays) equal leaf for leaf, dtypes
+    and bits."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.serialization import _leaf_paths
+    la, lb = _leaf_paths(a), _leaf_paths(b)
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        return False
+    for (_, x), (_, y) in zip(la, lb):
+        x, y = (torch.as_tensor(np.asarray(t)) if not isinstance(t, torch.Tensor)
+                else t.cpu() for t in (x, y))
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            return False
+    return True
+
+
+def phase_checkpoint(card_line):
+    """Full-width smollm-135m's fp32 params (~0.54 GB) through the
+    manager: save -> wait -> restore onto the card, then an unchanged
+    re-save, which must write nothing."""
+    import torch
+    from repro_torch.checkpoint import serialization as ser
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.models.registry import get_api
+    free_and_reset_peak()
+    cfg = get_arch(ARCH)
+    params = init_params(get_api(cfg).param_defs(cfg, 128 + 32 + 8),
+                         torch.Generator(device=DEV).manual_seed(0), DEV)
+    leaves = tree_leaves(params)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    with tempfile.TemporaryDirectory() as root:
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save(0, params)
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        save = {k: mgr.stats[k] for k in _SAVE_STATS}
+        codec = ser.load_manifest(Path(root) / "step_0000000000")["codec"]
+        t0 = time.perf_counter()
+        restored, meta = mgr.restore(params, device=DEV)
+        sync()
+        restore_s = time.perf_counter() - t0
+        on_card = all(t.device.type == torch.device(DEV).type
+                      for t in tree_leaves(restored))
+        equal = _leaves_equal(params, restored)
+        del restored
+        t0 = time.perf_counter()
+        mgr.save(1, params)
+        mgr.wait()
+        resave_s = time.perf_counter() - t0
+        resave = {k: mgr.stats[k] for k in ("last_bytes_written",
+                                            "last_bytes_referenced")}
+        restore = {k: mgr.stats[k] for k in _RESTORE_STATS}
+    del params, leaves
+    free()
+    ok = (equal and on_card and meta["step"] == 0
+          and save["last_bytes_written"] + save["last_bytes_referenced"]
+          == n_bytes and resave["last_bytes_written"] == 0
+          and resave["last_bytes_referenced"] == n_bytes)
+    emit("checkpoint", ok, card_line, arch=ARCH, dtype="float32",
+         param_bytes=n_bytes, codec=codec, save_s=save_s, save=save,
+         restore_s=restore_s, restore=restore, leaves_equal=equal,
+         resave_s=resave_s, resave=resave, peak_bytes=peak_bytes())
 
 
 def phase_serve_hybrid(card_line):
@@ -719,6 +829,99 @@ def phase_serve_hybrid(card_line):
          decode_s=row["decode_s"], tok_per_s=row["tok_per_s"],
          launches=counts, expected_launches=want, peak_bytes=peak_bytes())
     return counts
+
+
+def _continue(eng, cache, generated, pos, n):
+    """n greedy decode steps from a serving snapshot: the last generated
+    token goes in at pos - 1 (pos is one past the next cache slot).
+    Returns the tokens and every step's logits."""
+    import torch
+    tok = torch.as_tensor(generated[:, -1:], dtype=torch.long,
+                          device=eng.device)
+    pos = pos.to(torch.long) - 1
+    toks, logits = [], []
+    with torch.inference_mode():
+        for _ in range(n):
+            lg, cache = eng.api.decode(eng.cfg, eng.params, cache, tok, pos,
+                                       eng.policy)
+            tok = torch.argmax(lg, dim=-1)[:, None]
+            pos = pos + 1
+            toks.append(tok)
+            logits.append(lg)
+    return torch.cat(toks, dim=1).cpu(), torch.stack(logits)
+
+
+def phase_snapshot_hybrid(card_line):
+    """The serving snapshot at full width: recurrentgemma-9b generates
+    through the kernels and snapshots; the live engine and the snapshot,
+    restored onto the card, each decode SNAPSHOT_CONTINUE more tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import serialization as ser
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.checkpoint.resharding import plan_summary
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.registry import get_api
+    from repro_torch.serve.engine import ServeEngine
+    free_and_reset_peak()
+    hs = HYBRID_SERVE
+    cfg = get_arch(HYBRID)
+    max_seq = hs["prompt"] + hs["new_tokens"] + SNAPSHOT_CONTINUE + 8
+    params = init_params(get_api(cfg).param_defs(cfg, max_seq),
+                         torch.Generator(device=DEV).manual_seed(0), DEV)
+    eng = ServeEngine(cfg, params, max_seq=max_seq, device=DEV)
+    del params                                  # the engine keeps its cast
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (hs["batch"], hs["prompt"])).astype(np.int32)
+    _backends(True)
+    try:
+        ops.reset_launch_counts()
+        res = eng.generate(prompts, hs["new_tokens"])
+        launches = {"flash": ops.FLASH_LAUNCHES, "rglru": ops.RGLRU_LAUNCHES}
+        with tempfile.TemporaryDirectory() as root:
+            mgr = CheckpointManager(root)
+            t0 = time.perf_counter()
+            eng.snapshot_service(mgr, 0)
+            save_s = time.perf_counter() - t0
+            host = {"cache": tree_map(lambda t: t.to("cpu", copy=True),
+                                      eng.cache),
+                    "pos": eng.pos.to(torch.int32).cpu(),
+                    "generated": res.tokens}
+            step = Path(root) / "step_0000000000"
+            plan = plan_summary(step)
+            save = {k: mgr.stats[k] for k in _SAVE_STATS}
+            encodings = {k: e["shards"][0]["chunk"].rsplit(".", 1)[1]
+                         for k, e in ser.load_manifest(step)["leaves"].items()}
+            live, live_logits = _continue(eng, eng.cache, res.tokens, eng.pos,
+                                          SNAPSHOT_CONTINUE)
+            t0 = time.perf_counter()
+            snap, meta = mgr.restore(host, device=DEV)
+            sync()
+            restore_s = time.perf_counter() - t0
+            restore = {k: mgr.stats[k] for k in _RESTORE_STATS}
+        equal = _leaves_equal(host, snap)
+        cont, cont_logits = _continue(eng, snap["cache"],
+                                      snap["generated"].cpu().numpy(),
+                                      snap["pos"], SNAPSHOT_CONTINUE)
+        sync()
+    finally:
+        _backends(False)
+    logits_diff = float((live_logits.float() - cont_logits.float()).abs().max())
+    ok = (equal and torch.equal(live, cont) and meta["kind"] == "serve"
+          and bool(torch.isfinite(cont_logits).all()))
+    del eng, snap, live_logits, cont_logits
+    emit("snapshot-hybrid", ok, card_line, arch=HYBRID, dtype="bfloat16",
+         batch=hs["batch"], prompt_len=hs["prompt"],
+         new_tokens=hs["new_tokens"], continue_steps=SNAPSHOT_CONTINUE,
+         prefill_launches=launches, snapshot_leaves=plan["n_leaves"],
+         snapshot_bytes=plan["approx_bytes"],
+         compressed_bytes=plan.get("compressed_bytes"), encodings=encodings,
+         save_s=save_s, save=save, restore_s=restore_s, restore=restore,
+         leaves_equal=equal, tokens_equal=bool(torch.equal(live, cont)),
+         continuation_tokens=live.tolist(), logits_max_abs_diff=logits_diff,
+         peak_bytes=peak_bytes())
 
 
 # -------------------------------------------------------------- timing
@@ -988,8 +1191,10 @@ def main() -> int:
         errs = phase_kernels(card_line)
         phase_serve_parity(card_line)
         counts = {"serve": phase_serve(card_line)}
+        phase_checkpoint(card_line)
         phase_serve_parity_hybrid(card_line)
         counts["serve-hybrid"] = phase_serve_hybrid(card_line)
+        phase_snapshot_hybrid(card_line)
         free_and_reset_peak()
         timing = phase_timing(card_line)
     except PhaseFailed as e:

@@ -1,7 +1,8 @@
-"""Serving entrypoint: batched generate over the port's ServeEngine.
+"""Serving entrypoint: batched generate over the port's ServeEngine, with
+optional service snapshots after each round.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-      --batch 4 --prompt-len 128 --new-tokens 32
+      --batch 4 --prompt-len 128 --new-tokens 32 --snapshot-dir /tmp/svc
 
 On CUDA it selects the "flash" attention backend: the hand-written kernel
 is the reference's serving/prefill fast path (``repro.kernels.ops``), and
@@ -12,7 +13,10 @@ go to the chunked path, as in the reference.  On CUDA it also selects the
 reference's model always runs its plain associative scan and calls the
 recurrence kernel from nowhere, so without the switch the hand-written
 kernel would never serve a request.  After each round it prints how many
-times the flash and the RG-LRU kernels were launched.
+times the flash and the RG-LRU kernels were launched, and with
+``--snapshot-dir`` it then writes the serving state there
+(``ServeEngine.snapshot_service``, step = the round) and prints
+``{"snapshot": dir, "step": round}``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -42,6 +47,7 @@ def main(argv=None) -> list:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--snapshot-dir", default=None)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -76,6 +82,9 @@ def main(argv=None) -> list:
                "rglru_launches": ops.RGLRU_LAUNCHES}
         print(json.dumps(row))
         rows.append(row)
+        if args.snapshot_dir:
+            eng.snapshot_service(CheckpointManager(args.snapshot_dir), step=r)
+            print(json.dumps({"snapshot": args.snapshot_dir, "step": r}))
     return rows
 
 

@@ -5,7 +5,10 @@ Prefill attention is q-chunked (scores never materialize beyond
 (B, KV, G, q_chunk, S)) unless the "flash" backend is selected and the
 shapes meet the kernel's contract; then it goes through
 ``kernels.ops.flash_attention`` (the hand-written kernel on CUDA, its plain
-version on the CPU).
+version on the CPU).  The chunked path splits q into ``Sq // q_chunk``
+chunks with ``torch.chunk``, so it also accepts a length that chunk count
+does not divide (the chunks are then unequal), where the reference, which
+reshapes into equal chunks, raises.
 
 Left out until their slices land (ROADMAP.md, Queue 1): MLA and
 cross-attention (other families), and the sharded ``expand`` GQA layout

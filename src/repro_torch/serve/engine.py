@@ -1,8 +1,8 @@
 """Batched serving engine (torch twin of ``repro.serve.engine``): prefill +
-decode with a KV cache, greedy sampling, on one device.
-
-The checkpointable serving snapshot (``snapshot_service``) waits for the
-checkpoint slice (ROADMAP.md, Queue 1).
+decode with a KV cache, greedy sampling, on one device, and a
+checkpointable serving state (cache + positions + generated tokens): the
+service can be drained, snapshotted in the reference's checkpoint format,
+and restored by either package.
 """
 from __future__ import annotations
 
@@ -103,3 +103,19 @@ class ServeEngine:
             return y
 
         return tree_map(pad, cache)
+
+    # ----------------------------------------------------------- checkpoint
+    def snapshot_service(self, mgr, step: int) -> None:
+        """Drain + snapshot the serving state through ``mgr`` (a
+        ``repro_torch.checkpoint.manager.CheckpointManager``), as the
+        reference does: ``{"cache", "pos", "generated"}``, ``pos`` as int32
+        like the reference's.  ``pos`` is one past the next cache slot: the
+        last generated token is not in the cache yet, so a continuation
+        feeds ``generated[:, -1]`` at ``pos - 1``."""
+        payload = {"cache": self.cache,
+                   "pos": None if self.pos is None
+                   else self.pos.to(torch.int32),
+                   "generated": np.concatenate(self.generated, axis=1)
+                   if self.generated else np.zeros((0, 0), np.int32)}
+        mgr.save(step, payload, meta={"kind": "serve", "arch": self.cfg.name})
+        mgr.wait()

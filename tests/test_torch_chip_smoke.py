@@ -122,8 +122,10 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
                     "quantize_int8": 0.0, "dequantize_int8": 0.0}
     smoke.phase_serve_parity(card)
     counts = {"serve": smoke.phase_serve(card)}
+    smoke.phase_checkpoint(card)
     smoke.phase_serve_parity_hybrid(card)
     counts["serve-hybrid"] = smoke.phase_serve_hybrid(card)
+    smoke.phase_snapshot_hybrid(card)
     # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks
     assert counts == {
         "serve": {"flash_attention_fwd": 3, "rglru_scan": 0,
@@ -158,9 +160,20 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith('{"phase"')]
     assert [ln["phase"] for ln in lines] == [
-        "kernels", "serve-parity", "serve", "serve-parity-hybrid",
-        "serve-hybrid", "timing"]
+        "kernels", "serve-parity", "serve", "checkpoint",
+        "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid", "timing"]
     assert all(ln["ok"] for ln in lines)
+    phase = {ln["phase"]: ln for ln in lines}
+    # the smollm snapshot: k and v of the stacked cache, pos, generated
+    assert phase["serve"]["snapshot"]["n_leaves"] == 4
+    ckpt = phase["checkpoint"]
+    assert ckpt["leaves_equal"] and ckpt["resave"]["last_bytes_written"] == 0
+    assert ckpt["resave"]["last_bytes_referenced"] == ckpt["param_bytes"]
+    snap = phase["snapshot-hybrid"]
+    assert snap["prefill_launches"] == {"flash": 2, "rglru": 6}
+    assert snap["leaves_equal"] and snap["tokens_equal"]
+    assert snap["logits_max_abs_diff"] == 0.0
+    assert len(snap["continuation_tokens"][0]) == smoke.SNAPSHOT_CONTINUE
 
 
 def test_chip_smoke_bounds_at_the_serving_shapes(smoke):

@@ -158,6 +158,23 @@ def test_gqa_attention_chunked_matches_jax(window, q_chunk):
     _close(to, jo, 1e-5)
 
 
+@pytest.mark.parametrize("window", [0, 100])
+def test_gqa_attention_chunked_accepts_lengths_the_chunks_do_not_divide(
+        window):
+    """At Sq 301 and q_chunk 128 the reference raises (it reshapes into 2
+    equal chunks); the port splits q into 2 unequal chunks and computes the
+    same attention as one chunk would."""
+    q = torch.from_numpy(_f32((2, 301, 4, 16), 1))
+    k = torch.from_numpy(_f32((2, 301, 2, 16), 2))
+    v = torch.from_numpy(_f32((2, 301, 2, 16), 3))
+    pos = torch.arange(301)
+    out = {qc: t_att.gqa_attention(q, k, v, q_positions=pos, k_positions=pos,
+                                   window=window, q_chunk=qc)
+           for qc in (128, 1024)}
+    assert out[128].shape == (2, 301, 4, 16)
+    np.testing.assert_allclose(out[128].numpy(), out[1024].numpy(), atol=1e-6)
+
+
 # ---------------------------------------------------------- whole model
 
 @pytest.mark.parametrize("name", DENSE)
