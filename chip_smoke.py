@@ -51,6 +51,22 @@ one JSON line each; any failure exits non-zero:
                  decode steps on the live engine, and 8 from the snapshot
                  restored onto the card: restored leaves bit-equal to the
                  host copy taken at snapshot time, equal tokens
+  train          the repro_torch.train.loop.train path, smollm-135m at full
+                 width, bf16, the flash backend, remat on, B=8, seq 2048, 10
+                 steps: the other main path; 60 flash launches a step (the
+                 forward and the remat recompute), the loss falling, step
+                 time, tokens/s, 6NT against the bf16 peak, peak memory;
+                 flash gradients (kernel forward, plain backward) against
+                 the plain version's at the training shape, one step's
+                 gradients with the kernel against the plain path at a
+                 2-layer cut, in fp32, and the first full-width step's new
+                 params, m and v against a plain fp64 AdamW fed the same
+                 gradients
+  train-resume   under deterministic algorithms: a crash after step 7,
+                 resumed from the step-4 checkpoint, ends on the same last
+                 loss as an uninterrupted run; then the full-width fp32
+                 TrainState (params, m, v, the uint32 rng key) saved and
+                 restored onto the card bit for bit, with its times
   timing         every kernel at the shapes its paths give it (flash also
                  in fp32 at the serve-parity shapes, the RG-LRU scan at both
                  hybrid shapes and with bf16 inputs) against its plain
@@ -68,6 +84,8 @@ from __future__ import annotations
 
 import gc
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -140,6 +158,14 @@ RGLRU_STRESS = [(2, 63, 512, "sigmoid"), (2, 64, 512, "sigmoid"),
                 (2, 1024, 512, "zeros"), (2, 300, 256, "offset")]
 QUANT_SIZES = [(4096, 256), (512, 128), (65536, 256)]
 PARITY_TOL = 1e-3                                  # kernel vs plain paths
+# smollm-135m trained at full width through repro_torch.train.loop.train:
+# bf16 DEFAULT_POLICY, flash backend, remat on, 16,384 tokens a step; a
+# crash after step fail_at, resumed from the step-ckpt_every checkpoint
+TRAIN = dict(batch=8, seq=2048, steps=10, lr=1e-3, warmup=2, ckpt_every=4,
+             fail_at=7, seed=0)
+# the train step's fp32 AdamW against an fp64 one on the same gradients:
+# fp32 rounding of the clip norm over 134.5 M squares and of each update
+ADAMW_TOL = 1e-5
 
 
 class PhaseFailed(Exception):
@@ -367,6 +393,8 @@ def _check_flash(gen):
                hy["s"], hy["hd"], True, hy["window"], 1),   # serve-hybrid
               ("float32", hy["h"], hy["kv"], HYBRID_PARITY_PROMPT,
                HYBRID_PARITY_PROMPT, hy["hd"], True, hy["window"], 1)]
+    b, h, kv, s, hd, _, _ = flash_paths()["train"]
+    cases += [("bfloat16", b * h, b * kv, s, s, hd, True, 0, 1)]   # train
     cases += [("bfloat16",) + c for c in FLASH_BF16_CASES]
     cases += [("float32",) + c for c in FLASH_FP32_CASES]
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -390,6 +418,8 @@ def _check_flash(gen):
             at_path["serve-parity"] = err
         if dt == "float32" and window == hy["window"]:
             at_path["serve-parity-hybrid"] = err
+        if (dt, bh, sq, mag) == ("bfloat16", b * h, s, 1) and not window:
+            at_path["train"] = err
     q = _randn(gen, 2, 128, 64)
     k = _randn(gen, 2, 128, 64)
     v = torch.full((2, 128, 64), 2.5, device=DEV)
@@ -547,14 +577,22 @@ def _backends(kernels: bool) -> None:
     rg.set_recurrence_backend("kernel" if kernels else "scan")
 
 
+def _train_backend(flash: bool) -> None:
+    """The attention backend alone, as launch/train.py selects it on CUDA:
+    the recurrence stays on its differentiable plain scan."""
+    from repro_torch.models import attention as att
+    att.set_attention_backend("flash" if flash else "chunked")
+
+
 def _block_diffs(cfg, params, tokens, max_seq, policy):
     """Every block of the stack, each from the same input, through the
     kernel path and the plain path; the plain output feeds the next."""
     import torch
     from repro_torch.models import model as lm
     prefix, unit, n_units, tail = lm.stack_plan(cfg)
-    blocks = ([(k, lm._layer(params["units"], li)[f"b{i}"])
-               for li in range(n_units) for i, k in enumerate(unit)]
+    blocks = ([(k, unit_p[f"b{i}"])
+               for unit_p in lm._unstack(params["units"], n_units)
+               for i, k in enumerate(unit)]
               + list(zip(tail, params["tail"])))
     b, p = tokens.shape
     positions = torch.arange(p, device=tokens.device)[None].expand(b, p)
@@ -924,6 +962,346 @@ def phase_snapshot_hybrid(card_line):
          peak_bytes=peak_bytes())
 
 
+# ------------------------------------------------------------- training
+
+def _grad_gap(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / max(float(want.float().abs().max()), 1e-30))
+
+
+def _flash_grads_at_train_shape():
+    """ops.flash_attention's gradients (the kernel's forward, the plain
+    version's backward) against autograd through the plain version alone,
+    bf16 at the training shape: the largest gap of dq, dk, dv, each over
+    its largest gradient, held to the bf16 tolerance."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_flash_attention
+    b, h, kv, s, hd, _, _ = flash_paths()["train"]
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    base = [_randn(gen, n, s, hd, dtype=torch.bfloat16)
+            for n in (b * h, b * kv, b * kv)]
+    grads = {}
+    for name, fn in (("kernel", ops.flash_attention),
+                     ("plain", ref_flash_attention)):
+        qkv = [t.clone().requires_grad_() for t in base]
+        (fn(*qkv, causal=True).float() ** 2).sum().backward()
+        grads[name] = [t.grad for t in qkv]
+    gaps = {n: _grad_gap(a, c) for n, a, c in
+            zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"])}
+    del grads, base
+    return gaps
+
+
+def _step_grads_at_cut(cfg, n_layers):
+    """One train step's gradients at a depth cut of the full widths, fp32:
+    the flash backend (kernel forward) against the chunked plain path.
+    Returns the largest gap over the params, each leaf's gap taken over its
+    largest gradient."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.layers import Policy
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.state import make_train_state
+    from repro_torch.train.step import loss_and_grads
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    state = make_train_state(cut, torch.Generator(device=DEV).manual_seed(0),
+                             TRAIN["seq"], device=DEV)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in TokenPipeline(
+        cut.vocab_size, TRAIN["batch"], TRAIN["seq"]).next_batch().items()}
+    out = {}
+    for kernels in (True, False):
+        _train_backend(kernels)
+        try:
+            loss, _, g = loss_and_grads(cut, state["params"], batch,
+                                        policy=Policy(compute=torch.float32))
+        finally:
+            _train_backend(False)
+        out[kernels] = (float(loss), tree_leaves(g))
+    gap = max(_grad_gap(a, c) for a, c in zip(out[True][1], out[False][1]))
+    loss_gap = abs(out[True][0] - out[False][0])
+    finite = math.isfinite(out[True][0]) and all(
+        bool(torch.isfinite(g).all()) for g in out[True][1])
+    del state, out
+    return {"grad_gap": gap, "loss_gap": loss_gap, "finite": finite}
+
+
+def _step_update_against_plain_adamw(cfg):
+    """The main path's first train step at full width (bf16, flash, remat)
+    against a plain AdamW in fp64 on the host, fed the same gradients:
+    they are taken again outside the step, under deterministic algorithms,
+    so they are the step's own bits.  Each of the new params, m and v is
+    held leaf by leaf, its largest gap over its largest value, to
+    ADAMW_TOL; the step and count must read 1 and the grad norm agree to
+    ADAMW_TOL."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim.adamw import AdamWCfg
+    from repro_torch.train.state import make_train_state
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    t = TRAIN
+    step = make_train_step(cfg, base_lr=t["lr"], warmup=t["warmup"],
+                           total_steps=t["steps"], max_seq=t["seq"])
+    state = make_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             t["seq"], device=DEV)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in TokenPipeline(
+        cfg.vocab_size, t["batch"], t["seq"]).next_batch().items()}
+    _train_backend(True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        new, metrics = step(state, batch)
+        _, _, grads = loss_and_grads(cfg, state["params"], batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _train_backend(False)
+
+    a = AdamWCfg()
+    lr = t["lr"] * min(1.0, 1.0 / t["warmup"])       # the schedule at step 0
+    g64 = [g.double().cpu() for g in tree_leaves(grads)]
+    gnorm = math.sqrt(sum(float((g * g).sum()) for g in g64))
+    scale = min(1.0, a.clip_norm / (gnorm + 1e-12))
+
+    def gap(got, want):
+        return float((got.double().cpu() - want).abs().max()
+                     / max(float(want.abs().max()), 1e-30))
+
+    gaps = {"params": 0.0, "m": 0.0, "v": 0.0}
+    for p, g, p1, m1, v1 in zip(
+            tree_leaves(state["params"]), g64, tree_leaves(new["params"]),
+            tree_leaves(new["opt"]["m"]), tree_leaves(new["opt"]["v"])):
+        g = g * scale                   # zero moments, count 1
+        m, v = (1 - a.b1) * g, (1 - a.b2) * g * g
+        upd = (m / (1 - a.b1)) / (torch.sqrt(v / (1 - a.b2)) + a.eps)
+        p64 = p.double().cpu()
+        want = p64 - lr * (upd + a.weight_decay * p64)
+        for name, got, ref in (("params", p1, want), ("m", m1, m),
+                               ("v", v1, v)):
+            gaps[name] = max(gaps[name], gap(got, ref))
+    norm_gap = abs(float(metrics["grad_norm"]) - gnorm) / gnorm
+    counters = (int(new["step"]), int(new["opt"]["count"]))
+    del state, new, grads, g64
+    free()
+    return {"gaps": gaps, "grad_norm": gnorm, "grad_norm_gap": norm_gap,
+            "clip_scale": scale, "lr": lr, "step_and_count": counters,
+            "tolerance": ADAMW_TOL,
+            "ok": (max(gaps.values()) <= ADAMW_TOL
+                   and norm_gap <= ADAMW_TOL and counters == (1, 1))}
+
+
+def profile_step(fn, top: int = 20) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time (ended by
+    a synchronize), the device time of every kernel summed (a kernel's
+    self time), the busy share (device over wall), and the ``top`` kernels
+    by device time: name, launches, ms.  On the CPU the table is of CPU
+    ops and the device fields are None."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = DEV == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+
+    def self_us(e):
+        if not cuda:
+            return e.self_cpu_time_total
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if self_us(e) > 0
+              and (not cuda or "CUDA" in str(e.device_type))]
+    events.sort(key=self_us, reverse=True)
+    device_s = sum(self_us(e) for e in events) / 1e6 if cuda else None
+    return {"wall_s": wall, "device_s": device_s,
+            "busy_share": device_s / wall if cuda else None,
+            "top": [[e.key[:120], e.count, self_us(e) / 1e3]
+                    for e in events[:top]]}
+
+
+def _train(cfg, **kw):
+    from repro_torch.train.loop import train
+    t = TRAIN
+    return train(cfg, n_steps=t["steps"], global_batch=t["batch"],
+                 seq_len=t["seq"], base_lr=t["lr"], warmup=t["warmup"],
+                 seed=t["seed"], log_every=1, device=DEV, **kw)
+
+
+def _profile_train_step(cfg) -> dict:
+    """One more step of the main path's configuration, after a warm-up
+    step, under the profiler: where the step's device time goes."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.state import make_train_state
+    from repro_torch.train.step import make_train_step
+    t = TRAIN
+    step = make_train_step(cfg, base_lr=t["lr"], warmup=t["warmup"],
+                           total_steps=t["steps"], max_seq=t["seq"])
+    state = make_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             t["seq"], device=DEV)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in TokenPipeline(
+        cfg.vocab_size, t["batch"], t["seq"]).next_batch().items()}
+    _train_backend(True)
+    try:
+        state, _ = step(state, batch)
+        sync()
+        out = profile_step(lambda: step(state, batch))
+    finally:
+        _train_backend(False)
+    del state
+    return out
+
+
+def phase_train(card_line):
+    """The training path at full width: smollm-135m, bf16, the flash
+    backend, remat on, TRAIN["steps"] steps through train.loop.train with
+    every count set to 0 just before and read just after.  Beside it: the
+    flash gradients at the training shape, and one step's gradients with
+    the kernel against the plain path at a depth cut."""
+    import statistics
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import count_params
+    cfg = get_arch(ARCH)
+    flash_gaps = _flash_grads_at_train_shape()
+    cut = _step_grads_at_cut(cfg, CUT_LAYERS)
+    update = _step_update_against_plain_adamw(cfg)
+    free_and_reset_peak()
+    _train_backend(True)
+    try:
+        ops.reset_launch_counts()          # the main path starts here
+        res = _train(cfg)
+        counts = {"flash_attention_fwd": ops.FLASH_LAUNCHES,  # ... ends here
+                  "rglru_scan": ops.RGLRU_LAUNCHES,
+                  "quantize_int8": ops.QUANT_LAUNCHES,
+                  "dequantize_int8": ops.DEQUANT_LAUNCHES}
+    finally:
+        _train_backend(False)
+    peak = peak_bytes()
+    profile = _profile_train_step(cfg)
+    free()
+    step_s = statistics.median(res.step_s[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    n_params = count_params(cfg, TRAIN["seq"])
+    per_step = counts["flash_attention_fwd"] / res.steps_run
+    want = 2 * cfg.n_layers                # forward + remat recompute
+    ok = (per_step == want and res.losses[-1] < res.losses[0]
+          and all(math.isfinite(x) for x in res.losses)
+          and max(flash_gaps.values()) <= TOL["bfloat16"]
+          and cut["finite"] and cut["grad_gap"] <= PARITY_TOL
+          and update["ok"] and counts["rglru_scan"] == 0)
+    emit("train", ok, card_line, arch=ARCH, dtype="bfloat16", remat=True,
+         batch=TRAIN["batch"], seq=TRAIN["seq"], steps=res.steps_run,
+         lr=TRAIN["lr"], warmup=TRAIN["warmup"], step_s=step_s,
+         step_s_all=res.step_s, tok_per_s=tokens / step_s,
+         model_flops_6nt=6 * n_params * tokens, n_params=n_params,
+         mfu_6nt=6 * n_params * tokens / step_s / BF16_FLOP_PER_S,
+         peak_bytes=peak, flash_launches=counts["flash_attention_fwd"],
+         flash_launches_per_step=per_step, expected_per_step=want,
+         launches=counts, first_loss=res.losses[0], last_loss=res.losses[-1],
+         losses=res.losses, flash_grad_gap_at_train_shape=flash_gaps,
+         flash_grad_tolerance=TOL["bfloat16"],
+         step_grads_at_cut={"cut_layers": CUT_LAYERS, "dtype": "float32",
+                            **cut, "tolerance": PARITY_TOL},
+         step_update_vs_fp64_adamw=update, step_profile=profile)
+    return counts
+
+
+def _train_state_roundtrip(cfg):
+    """The full-width fp32 TrainState (params, m, v, counters, the uint32
+    rng key) through the manager: save + wait, restore onto the card,
+    bit-equal leaves."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.state import make_train_state, train_state_template
+    state = make_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             TRAIN["seq"], device=DEV)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    with tempfile.TemporaryDirectory() as root:
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save(0, state)
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        save = {k: mgr.stats[k] for k in _SAVE_STATS}
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore(train_state_template(cfg, TRAIN["seq"]),
+                                  device=DEV)
+        sync()
+        restore_s = time.perf_counter() - t0
+        restore = {k: mgr.stats[k] for k in _RESTORE_STATS}
+    equal = _leaves_equal(state, restored)
+    rng_dtype = str(restored["rng"].dtype)
+    del state, restored
+    free()
+    return {"state_bytes": n_bytes, "save_s": save_s, "save": save,
+            "restore_s": restore_s, "restore": restore,
+            "leaves_equal": equal, "rng_dtype": rng_dtype}
+
+
+def phase_train_resume(card_line):
+    """A crash after step TRAIN["fail_at"], resumed from the last
+    checkpoint, against an uninterrupted run, under deterministic
+    algorithms (CUBLAS_WORKSPACE_CONFIG is set before CUDA is first
+    touched): the last losses must be equal.  An op that has no
+    deterministic version warns (warn_only) and is listed.  Then the
+    TrainState's own save and restore times."""
+    import warnings
+
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = get_arch(ARCH)
+    free_and_reset_peak()
+    _train_backend(True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory() as root:
+            warnings.simplefilter("always")
+            ref = _train(cfg)
+            t0 = time.perf_counter()
+            try:
+                _train(cfg, ckpt_root=root, ckpt_every=TRAIN["ckpt_every"],
+                       fail_at_step=TRAIN["fail_at"])
+                crashed = False
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+                crashed = True
+            crash_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = _train(cfg, ckpt_root=root, ckpt_every=TRAIN["ckpt_every"])
+            resume_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _train_backend(False)
+    nondeterministic = sorted({str(w.message).split(".")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+    diff = abs(res.losses[-1] - ref.losses[-1])
+    resumed_at = TRAIN["fail_at"] // TRAIN["ckpt_every"] * TRAIN["ckpt_every"]
+    free()
+    roundtrip = _train_state_roundtrip(cfg)
+    ok = (crashed and res.resumed_from == resumed_at
+          and res.steps_run == TRAIN["steps"] - resumed_at and diff == 0.0
+          and roundtrip["leaves_equal"]
+          and roundtrip["rng_dtype"] == "torch.uint32")
+    emit("train-resume", ok, card_line, arch=ARCH, dtype="bfloat16",
+         deterministic=True, fail_at_step=TRAIN["fail_at"],
+         ckpt_every=TRAIN["ckpt_every"], resumed_from=res.resumed_from,
+         steps_after_resume=res.steps_run, last_loss=res.losses[-1],
+         uninterrupted_last_loss=ref.losses[-1], last_loss_diff=diff,
+         uninterrupted_losses=ref.losses, resumed_losses=res.losses,
+         nondeterministic_ops=nondeterministic, crash_run_s=crash_s,
+         resume_run_s=resume_s, resume_ckpt_stats=res.ckpt_stats,
+         train_state=roundtrip, peak_bytes=peak_bytes())
+
+
 # -------------------------------------------------------------- timing
 
 def sdpa_route(args, kwargs) -> dict:
@@ -1066,7 +1444,9 @@ def flash_paths() -> dict:
             "serve-parity": (2, sm["h"], sm["kv"], 128, sm["hd"], 0,
                              "float32"),
             "serve-parity-hybrid": (1, hy["h"], hy["kv"], HYBRID_PARITY_PROMPT,
-                                    hy["hd"], hy["window"], "float32")}
+                                    hy["hd"], hy["window"], "float32"),
+            "train": (TRAIN["batch"], sm["h"], sm["kv"], TRAIN["seq"],
+                      sm["hd"], 0, "bfloat16")}
 
 
 def phase_timing(card_line):
@@ -1168,6 +1548,9 @@ def kernels_line(errs, counts_by_path, timing) -> dict:
 
 
 def main() -> int:
+    # cuBLAS reads this when CUDA is first used; train-resume runs under
+    # deterministic algorithms, which need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1195,6 +1578,8 @@ def main() -> int:
         phase_serve_parity_hybrid(card_line)
         counts["serve-hybrid"] = phase_serve_hybrid(card_line)
         phase_snapshot_hybrid(card_line)
+        counts["train"] = phase_train(card_line)
+        phase_train_resume(card_line)
         free_and_reset_peak()
         timing = phase_timing(card_line)
     except PhaseFailed as e:

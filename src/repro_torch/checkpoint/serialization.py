@@ -143,11 +143,13 @@ _EXT_SHUF = re.compile(r"^(zst|zz)s(\d+)$")
 
 #: manifest dtype string -> (numpy storage dtype, torch dtype).  The
 #: strings are numpy's names, as the reference writes them; bfloat16 is
-#: stored as its raw 16-bit words.
+#: stored as its raw 16-bit words.  uint32 is the reference TrainState's
+#: rng key (``jax.random.PRNGKey``, uint32[2]).
 DTYPES = {name: (np.dtype("uint16" if name == "bfloat16" else name),
                  getattr(torch, name))
           for name in ("float64", "float32", "float16", "bfloat16", "int64",
-                       "int32", "int16", "int8", "uint8", "bool")}
+                       "int32", "int16", "int8", "uint64", "uint32", "uint16",
+                       "uint8", "bool")}
 
 
 _NAMES = {t: name for name, (_, t) in DTYPES.items()}

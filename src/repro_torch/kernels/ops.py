@@ -3,14 +3,20 @@
 A CPU tensor goes to the kernel's plain PyTorch version (``kernels/ref.py``);
 a CUDA tensor goes to the hand-written kernel, or the call raises.  Nothing
 falls back from one to the other.  The forward kernels are the
-serving/prefill fast path.
+serving/prefill fast path; the flash kernel is also the training
+forward.
 
 Each counter counts launches of one kernel (and only those), so a run can
 show that its path went through the kernel: ``FLASH_LAUNCHES``,
 ``RGLRU_LAUNCHES``, ``QUANT_LAUNCHES`` and ``DEQUANT_LAUNCHES``.
 
-No gradient yet: the reference's custom_vjp becomes an
-``autograd.Function`` with the training slice (ROADMAP.md, Queue 1).
+``flash_attention`` is an ``autograd.Function``, as the reference's is a
+custom_vjp: the forward is the kernel (its plain version on the CPU), and
+the backward is autograd through the plain version on the saved q, k, v,
+recomputed (``repro.kernels.ops._fa_bwd``).  No TPU kernel has a backward
+kernel, so neither does the port.  ``rglru`` has no backward, as the
+reference's has no vjp (its model trains through the plain scan): it
+raises on a tensor that requires grad.
 """
 from __future__ import annotations
 
@@ -36,22 +42,43 @@ def reset_launch_counts() -> None:
 def _refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward yet; it comes with the training slice "
-            f"(ROADMAP.md, Queue 1: training).  Call it under "
-            f"torch.inference_mode() or on tensors that do not require grad")
+            f"{name} has no backward, as the reference's has no vjp; "
+            f"training goes through the plain scan (the \"scan\" recurrence "
+            f"backend).  Call it under torch.inference_mode() or on tensors "
+            f"that do not require grad")
 
 
 # ---------------------------------------------------------------- attention
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """q (BH, Sq, hd); k, v (BKV, Sk, hd).  GQA folded by the caller."""
+def _flash_fwd(q, k, v, causal, window):
     global FLASH_LAUNCHES
-    _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref_flash_attention(q, k, v, causal=causal, window=window)
     out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
     FLASH_LAUNCHES += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _flash_fwd(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = ref_flash_attention(*qkv, causal=ctx.causal,
+                                      window=ctx.window)
+        dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q (BH, Sq, hd); k, v (BKV, Sk, hd).  GQA folded by the caller."""
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 # ------------------------------------------------------------------- rg-lru

@@ -35,14 +35,18 @@ def ref_rglru(a, x, h0):
     As the reference, a_0 * h0 is folded into x_0 and the sequence is
     scanned from zero.  The scan doubles its reach each step (log2 S
     shifted multiply-adds), close to the summation order of the
-    reference's associative scan."""
+    reference's associative scan.  Every step builds a new tensor (no
+    in-place write), so autograd differentiates it: the hybrid trains
+    through it, as the reference trains through its associative scan."""
     a = a.float()
-    h = x.float().clone()
-    h[:, 0] += a[:, 0] * h0.float()
+    x = x.float()
+    h = torch.cat([x[:, :1] + a[:, :1] * h0.float()[:, None], x[:, 1:]],
+                  dim=1)
     s = h.shape[1]
     off = 1
     while off < s:
-        h[:, off:] = h[:, off:] + a[:, off:] * h[:, :-off]
+        h = torch.cat([h[:, :off], h[:, off:] + a[:, off:] * h[:, :-off]],
+                      dim=1)
         if off * 2 < s:
             a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2

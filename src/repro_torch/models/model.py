@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as att
@@ -21,7 +22,7 @@ from repro_torch.models import rglru as rg
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
                                        apply_norm, embed_defs, embed_tokens,
                                        lm_logits, mlp_defs, norm_defs)
-from repro_torch.models.params import stack_defs, tree_map
+from repro_torch.models.params import stack_defs
 
 #: Block kinds of the other families, and the ROADMAP.md item that ports them.
 _NOT_PORTED = {
@@ -162,9 +163,15 @@ def lm_cache_defs(cfg: ArchConfig, batch: int, max_seq: int):
 # Forward / prefill / decode
 # --------------------------------------------------------------------------
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: views into the L dim, no copy."""
-    return tree_map(lambda x: x[i], tree)
+def _unstack(tree, n: int):
+    """A stacked tree -> ``n`` per-layer trees of views into the L dim, by
+    one ``unbind`` a leaf.  Under autograd, indexing the L dim once per
+    layer would make a zero gradient of the whole stack for every layer;
+    ``unbind``'s backward stacks the per-layer gradients once."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack(trees):
@@ -191,7 +198,11 @@ def _embed_in(cfg, params, tokens, extras, policy):
 def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
                remat: bool = True):
     """batch: tokens (B,S) [+ vision_embeds].  Returns (logits, aux).
-    ``remat`` is accepted for signature parity and ignored (no training)."""
+
+    With ``remat`` and autograd recording, each unit runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    unit body): the backward recomputes the unit's forward, the flash
+    kernel included, so a training step launches it twice a layer."""
     prefix, unit, n_units, tail = stack_plan(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -202,11 +213,20 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
     for k, p in zip(prefix, params["prefix"]):
         x, a, _ = apply_block(cfg, k, p, x, positions, policy)
         aux = aux + a
-    for li in range(n_units):
-        unit_p = _layer(params["units"], li)
+
+    def unit_body(x, unit_p):
+        a_tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, k in enumerate(unit):
             x, a, _ = apply_block(cfg, k, unit_p[f"b{i}"], x, positions, policy)
-            aux = aux + a
+            a_tot = a_tot + a
+        return x, a_tot
+
+    for unit_p in _unstack(params["units"], n_units):
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(unit_body, x, unit_p, use_reentrant=False)
+        else:
+            x, a = unit_body(x, unit_p)
+        aux = aux + a
     for k, p in zip(tail, params["tail"]):
         x, a, _ = apply_block(cfg, k, p, x, positions, policy)
         aux = aux + a
@@ -228,8 +248,7 @@ def lm_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
         x, cache = prefill_block(cfg, k, p, x, positions, max_cache, policy)
         pc.append(cache)
     per_layer = []
-    for li in range(n_units):
-        unit_p = _layer(params["units"], li)
+    for unit_p in _unstack(params["units"], n_units):
         caches = {}
         for i, k in enumerate(unit):
             x, caches[f"b{i}"] = prefill_block(cfg, k, unit_p[f"b{i}"], x,
@@ -257,8 +276,8 @@ def lm_decode(cfg: ArchConfig, params, cache, token, pos,
 
     for k, p, c0 in zip(prefix, params["prefix"], cache["prefix"]):
         x, _ = decode_block(cfg, k, p, x, c0, pos, policy)
-    for li in range(n_units):
-        unit_p, unit_c = _layer(params["units"], li), _layer(cache["units"], li)
+    for unit_p, unit_c in zip(_unstack(params["units"], n_units),
+                              _unstack(cache["units"], n_units)):
         for i, k in enumerate(unit):
             x, _ = decode_block(cfg, k, unit_p[f"b{i}"], x, unit_c[f"b{i}"],
                                 pos, policy)

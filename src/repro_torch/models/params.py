@@ -53,6 +53,12 @@ def tree_leaves(tree, is_leaf=None) -> list:
     return out
 
 
+def tree_unflatten(tree, values):
+    """``values``, in ``tree_leaves(tree)`` order, in ``tree``'s structure."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_map_pm(fn, defs):
     return tree_map(fn, defs, is_leaf=is_pm)
 

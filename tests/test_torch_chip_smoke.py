@@ -13,6 +13,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.configs import ARCHS, reduce_for_smoke
 from repro_torch.kernels import flash_attention as fa
@@ -73,6 +74,9 @@ def smoke(monkeypatch):
                         dict(b=2, h=4, kv=1, s=128, hd=64, window=64))
     monkeypatch.setattr(mod, "RGLRU_SHAPE", (2, 128, 64))
     monkeypatch.setattr(mod, "QUANT_N", 4096)
+    monkeypatch.setattr(mod, "TRAIN", dict(batch=2, seq=128, steps=10, lr=1e-3,
+                                           warmup=2, ckpt_every=4, fail_at=7,
+                                           seed=0))
     monkeypatch.setattr(mod, "cuda_ms", lambda fn: (fn(), 1.0)[1])
 
     def flash(q, k, v, causal=True, window=0):
@@ -103,9 +107,16 @@ def smoke(monkeypatch):
         return main(argv + ["--device", "cpu"])
 
     monkeypatch.setattr(serve, "main", main_on_cpu)
+    # one intra-op thread: the phases run thousands of tiny ops (training
+    # most), and with the suite's other workers on the same cores, idle
+    # OpenMP threads spinning at every op's barrier slowed this test from
+    # 7 s to over 100 s; with one thread it takes 20 s under that load
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     try:
         yield mod
     finally:
+        torch.set_num_threads(threads)
         set_attention_backend("chunked")
         set_recurrence_backend("scan")
 
@@ -115,7 +126,8 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     errs = smoke.phase_kernels(card)
     assert errs == {"flash_attention_fwd": {"serve": 0.0, "serve-hybrid": 0.0,
                                             "serve-parity": 0.0,
-                                            "serve-parity-hybrid": 0.0},
+                                            "serve-parity-hybrid": 0.0,
+                                            "train": 0.0},
                     "rglru_scan": {"serve-hybrid": 0.0,
                                    "serve-parity-hybrid": 0.0,
                                    "bf16-inputs": 0.0},
@@ -126,12 +138,17 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     smoke.phase_serve_parity_hybrid(card)
     counts["serve-hybrid"] = smoke.phase_serve_hybrid(card)
     smoke.phase_snapshot_hybrid(card)
-    # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks
+    counts["train"] = smoke.phase_train(card)
+    smoke.phase_train_resume(card)
+    # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks;
+    # training launches flash twice a layer (remat), 10 steps
     assert counts == {
         "serve": {"flash_attention_fwd": 3, "rglru_scan": 0,
                   "quantize_int8": 0, "dequantize_int8": 0},
         "serve-hybrid": {"flash_attention_fwd": 2, "rglru_scan": 6,
-                         "quantize_int8": 0, "dequantize_int8": 0}}
+                         "quantize_int8": 0, "dequantize_int8": 0},
+        "train": {"flash_attention_fwd": 60, "rglru_scan": 0,
+                  "quantize_int8": 0, "dequantize_int8": 0}}
     timing = smoke.phase_timing(card)
     row = timing[("flash_attention_fwd", "serve")]
     # q + o (36x128x64) and k, v (12x128x64), bf16, over 3.35 TB/s
@@ -141,7 +158,9 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     line = smoke.kernels_line(errs, counts, timing)["kernels"]
     assert [k["name"] for k in line] == ["flash_attention_fwd", "rglru_scan",
                                          "quantize_int8", "dequantize_int8"]
-    assert [k["launches"] for k in line] == [5, 6, 0, 0]
+    assert [k["launches"] for k in line] == [65, 6, 0, 0]
+    assert line[0]["launches_by_path"] == {"serve": 3, "serve-hybrid": 2,
+                                           "train": 60}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) and (ROOT / k["source"]).exists() for k in line)
@@ -161,7 +180,8 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
              if ln.startswith('{"phase"')]
     assert [ln["phase"] for ln in lines] == [
         "kernels", "serve-parity", "serve", "checkpoint",
-        "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid", "timing"]
+        "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid", "train",
+        "train-resume", "timing"]
     assert all(ln["ok"] for ln in lines)
     phase = {ln["phase"]: ln for ln in lines}
     # the smollm snapshot: k and v of the stacked cache, pos, generated
@@ -174,6 +194,17 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     assert snap["leaves_equal"] and snap["tokens_equal"]
     assert snap["logits_max_abs_diff"] == 0.0
     assert len(snap["continuation_tokens"][0]) == smoke.SNAPSHOT_CONTINUE
+    train = phase["train"]
+    assert train["flash_launches_per_step"] == train["expected_per_step"] == 6
+    assert train["last_loss"] < train["first_loss"]
+    assert train["tok_per_s"] == pytest.approx(256 / train["step_s"])
+    assert max(train["flash_grad_gap_at_train_shape"].values()) == 0.0
+    assert train["step_grads_at_cut"]["grad_gap"] <= smoke.PARITY_TOL
+    resume = phase["train-resume"]
+    assert (resume["resumed_from"], resume["steps_after_resume"]) == (4, 6)
+    assert resume["last_loss_diff"] == 0.0
+    assert resume["train_state"]["leaves_equal"]
+    assert resume["train_state"]["rng_dtype"] == "torch.uint32"
 
 
 def test_chip_smoke_bounds_at_the_serving_shapes(smoke):

@@ -7,11 +7,13 @@ same numpy inputs.  The CUDA kernel itself is held against the plain
 version on the card by chip_smoke.py."""
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jax_ops
 from repro.kernels.flash_attention import flash_attention_fwd as jax_fa_fwd
 from repro.kernels.ref import ref_flash_attention as jax_ref_fa
 from repro_torch.device import resolve_device
@@ -72,12 +74,33 @@ def test_flash_attention_constant_v_property():
     np.testing.assert_allclose(out.numpy(), 2.5, atol=1e-5)
 
 
-def test_flash_attention_refuses_grad():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 2, 2, 128, 128, 64))
-    with pytest.raises(NotImplementedError, match="training"):
-        ops.flash_attention(q.requires_grad_(), k, v)
+@pytest.mark.parametrize("bh,bkv,s,hd,window", [
+    (2, 2, 128, 64, 0),          # tests/test_kernels.py:63
+    (6, 2, 256, 64, 64),         # GQA g=3 (smollm-135m's), local window
+])
+def test_flash_attention_grad_matches_jax(bh, bkv, s, hd, window):
+    """Twin of tests/test_kernels.py:63 through the autograd.Function: the
+    gradients of sum(out^2) against jax.grad through the reference's
+    custom_vjp (the Pallas kernel's forward in interpret mode, the plain
+    version's vjp), at its atol 2e-4.  A CPU call launches no kernel, in
+    the forward or the backward."""
+    arrays = _qkv(2, bh, bkv, s, s, hd)
+
+    def loss_jax(q, k, v):
+        return jnp.sum(jax_ops.flash_attention(q, k, v, True, window) ** 2)
+
+    want = jax.grad(loss_jax, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in arrays))
+    qkv = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    launches = ops.FLASH_LAUNCHES
+    (ops.flash_attention(*qkv, True, window) ** 2).sum().backward()
+    assert ops.FLASH_LAUNCHES == launches
+    for t, j in zip(qkv, want):
+        np.testing.assert_allclose(t.grad.numpy(), _np(j), atol=2e-4)
+    # without autograd the same entry point runs as before
     with torch.inference_mode():
-        ops.flash_attention(q.detach(), k, v)
+        out = ops.flash_attention(*(t.detach() for t in qkv), True, window)
+    assert not out.requires_grad
 
 
 def test_kernel_wrapper_takes_only_cuda_tensors():
