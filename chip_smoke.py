@@ -67,6 +67,18 @@ one JSON line each; any failure exits non-zero:
                  loss as an uninterrupted run; then the full-width fp32
                  TrainState (params, m, v, the uint32 rng key) saved and
                  restored onto the card bit for bit, with its times
+  checkpoint-remote
+                 the full-width TrainState after 2 steps through the
+                 manager in three legs: its own directory, one chunk
+                 server, three with replicas=2 (servers started through
+                 python -m repro_torch.checkpoint.chunkservice); each leg
+                 saves, re-saves unchanged (0 bytes uploaded), restores
+                 onto the card from an empty cache (the bytes the
+                 checkpoint references fetched) and from the warm one,
+                 bit-equal; the sharded leg SIGKILLs a server, restores
+                 again and reports it down; one bf16 flash training step
+                 from each leg's restore, equal losses; then the 9B
+                 serving snapshot through three servers, equal tokens
   timing         every kernel at the shapes its paths give it (flash also
                  in fp32 at the serve-parity shapes, the RG-LRU scan at both
                  hybrid shapes and with bf16 inputs) against its plain
@@ -87,6 +99,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -163,6 +176,12 @@ PARITY_TOL = 1e-3                                  # kernel vs plain paths
 # crash after step fail_at, resumed from the step-ckpt_every checkpoint
 TRAIN = dict(batch=8, seq=2048, steps=10, lr=1e-3, warmup=2, ckpt_every=4,
              fail_at=7, seed=0)
+# checkpoint-remote: the TrainState after PRE_STEPS steps, saved through
+# each storage leg (the number of chunk servers it runs); the servers are
+# processes started through the port's CLI, or "threads" in this process
+PRE_STEPS = 2
+REMOTE_LEGS = {"local": 0, "remote": 1, "sharded": 3}
+REMOTE_SERVERS = "processes"
 # the train step's fp32 AdamW against an fp64 one on the same gradients:
 # fp32 rounding of the clip norm over 134.5 M squares and of each update
 ADAMW_TOL = 1e-5
@@ -889,21 +908,17 @@ def _continue(eng, cache, generated, pos, n):
     return torch.cat(toks, dim=1).cpu(), torch.stack(logits)
 
 
-def phase_snapshot_hybrid(card_line):
-    """The serving snapshot at full width: recurrentgemma-9b generates
-    through the kernels and snapshots; the live engine and the snapshot,
-    restored onto the card, each decode SNAPSHOT_CONTINUE more tokens."""
+def _hybrid_engine():
+    """recurrentgemma-9b at full width behind a ServeEngine, after one
+    round of HYBRID_SERVE through the kernels.  Returns the engine, the
+    round's result and the round's prefill launches."""
     import numpy as np
     import torch
-    from repro_torch.checkpoint import serialization as ser
-    from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.checkpoint.resharding import plan_summary
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.params import init_params
     from repro_torch.models.registry import get_api
     from repro_torch.serve.engine import ServeEngine
-    free_and_reset_peak()
     hs = HYBRID_SERVE
     cfg = get_arch(HYBRID)
     max_seq = hs["prompt"] + hs["new_tokens"] + SNAPSHOT_CONTINUE + 8
@@ -913,39 +928,61 @@ def phase_snapshot_hybrid(card_line):
     del params                                  # the engine keeps its cast
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (hs["batch"], hs["prompt"])).astype(np.int32)
+    before = {"flash": ops.FLASH_LAUNCHES, "rglru": ops.RGLRU_LAUNCHES}
     _backends(True)
     try:
-        ops.reset_launch_counts()
         res = eng.generate(prompts, hs["new_tokens"])
-        launches = {"flash": ops.FLASH_LAUNCHES, "rglru": ops.RGLRU_LAUNCHES}
-        with tempfile.TemporaryDirectory() as root:
-            mgr = CheckpointManager(root)
-            t0 = time.perf_counter()
-            eng.snapshot_service(mgr, 0)
-            save_s = time.perf_counter() - t0
-            host = {"cache": tree_map(lambda t: t.to("cpu", copy=True),
-                                      eng.cache),
-                    "pos": eng.pos.to(torch.int32).cpu(),
-                    "generated": res.tokens}
-            step = Path(root) / "step_0000000000"
-            plan = plan_summary(step)
-            save = {k: mgr.stats[k] for k in _SAVE_STATS}
-            encodings = {k: e["shards"][0]["chunk"].rsplit(".", 1)[1]
-                         for k, e in ser.load_manifest(step)["leaves"].items()}
-            live, live_logits = _continue(eng, eng.cache, res.tokens, eng.pos,
-                                          SNAPSHOT_CONTINUE)
-            t0 = time.perf_counter()
-            snap, meta = mgr.restore(host, device=DEV)
-            sync()
-            restore_s = time.perf_counter() - t0
-            restore = {k: mgr.stats[k] for k in _RESTORE_STATS}
-        equal = _leaves_equal(host, snap)
-        cont, cont_logits = _continue(eng, snap["cache"],
-                                      snap["generated"].cpu().numpy(),
-                                      snap["pos"], SNAPSHOT_CONTINUE)
-        sync()
     finally:
         _backends(False)
+    launches = {"flash": ops.FLASH_LAUNCHES - before["flash"],
+                "rglru": ops.RGLRU_LAUNCHES - before["rglru"]}
+    return eng, res, launches
+
+
+def _snapshot_host_copy(eng, res):
+    """The serving snapshot's payload, copied to the host."""
+    import torch
+    from repro_torch.models.params import tree_map
+    return {"cache": tree_map(lambda t: t.to("cpu", copy=True), eng.cache),
+            "pos": eng.pos.to(torch.int32).cpu(), "generated": res.tokens}
+
+
+def phase_snapshot_hybrid(card_line):
+    """The serving snapshot at full width: recurrentgemma-9b generates
+    through the kernels and snapshots; the live engine and the snapshot,
+    restored onto the card, each decode SNAPSHOT_CONTINUE more tokens."""
+    import torch
+    from repro_torch.checkpoint import serialization as ser
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.checkpoint.resharding import plan_summary
+    from repro_torch.kernels import ops
+    free_and_reset_peak()
+    hs = HYBRID_SERVE
+    ops.reset_launch_counts()
+    eng, res, launches = _hybrid_engine()
+    with tempfile.TemporaryDirectory() as root:
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        eng.snapshot_service(mgr, 0)
+        save_s = time.perf_counter() - t0
+        host = _snapshot_host_copy(eng, res)
+        step = Path(root) / "step_0000000000"
+        plan = plan_summary(step)
+        save = {k: mgr.stats[k] for k in _SAVE_STATS}
+        encodings = {k: e["shards"][0]["chunk"].rsplit(".", 1)[1]
+                     for k, e in ser.load_manifest(step)["leaves"].items()}
+        live, live_logits = _continue(eng, eng.cache, res.tokens, eng.pos,
+                                      SNAPSHOT_CONTINUE)
+        t0 = time.perf_counter()
+        snap, meta = mgr.restore(host, device=DEV)
+        sync()
+        restore_s = time.perf_counter() - t0
+        restore = {k: mgr.stats[k] for k in _RESTORE_STATS}
+    equal = _leaves_equal(host, snap)
+    cont, cont_logits = _continue(eng, snap["cache"],
+                                  snap["generated"].cpu().numpy(),
+                                  snap["pos"], SNAPSHOT_CONTINUE)
+    sync()
     logits_diff = float((live_logits.float() - cont_logits.float()).abs().max())
     ok = (equal and torch.equal(live, cont) and meta["kind"] == "serve"
           and bool(torch.isfinite(cont_logits).all()))
@@ -1302,6 +1339,350 @@ def phase_train_resume(card_line):
          train_state=roundtrip, peak_bytes=peak_bytes())
 
 
+# ---------------------------------------------------- remote chunk stores
+
+def _start_servers(n: int, root: Path) -> list:
+    """n chunk servers over root/srv0 ... (REMOTE_SERVERS says how); none
+    is left running when one fails to start."""
+    servers = []
+    try:
+        for i in range(n):
+            servers.append(ShardServer(root / f"srv{i}"))
+    except BaseException:
+        for srv in servers:
+            srv.stop()
+        raise
+    return servers
+
+
+class ShardServer:
+    """One chunk server of the checkpoint-remote phase: a process started
+    through the port's CLI (``python -m
+    repro_torch.checkpoint.chunkservice DIR``), so that the interpreter
+    lock does not serialise server and client; or, when REMOTE_SERVERS is
+    "threads" (the CPU rehearsal), a ChunkServer in this process."""
+
+    def __init__(self, root: Path):
+        self.proc = self.srv = None
+        if REMOTE_SERVERS == "threads":
+            from repro_torch.checkpoint.chunkservice import ChunkServer
+            self.srv = ChunkServer(root).start()
+            self.endpoint = f"{self.srv.host}:{self.srv.port}"
+            return
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.checkpoint.chunkservice",
+             str(root), "--port", "0"],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            stdout=subprocess.PIPE, text=True)
+        line = self.proc.stdout.readline()
+        if not line.startswith("chunkserver: "):
+            self.stop()
+            raise RuntimeError(f"chunk server over {root} did not start: "
+                               f"{line!r}")
+        self.endpoint = line.split()[-1]
+
+    def kill(self) -> None:
+        """SIGKILL the process (a thread server stops)."""
+        if self.proc is not None:
+            self.proc.kill()
+            self.proc.wait(30)
+            self.proc.stdout.close()
+            self.proc = None
+        elif self.srv is not None:
+            self.srv.stop()
+            self.srv = None
+
+    def stop(self) -> None:
+        if self.proc is not None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                pass
+        self.kill()
+
+
+def _store_spec(servers, namespace: str, cache: Path) -> str:
+    from repro_torch.checkpoint.chunkstore import StoreSpec
+    return StoreSpec(scheme="remote",
+                     endpoints=tuple(s.endpoint for s in servers),
+                     namespace=namespace,
+                     replicas=2 if len(servers) > 1 else None,
+                     cache=str(cache)).canonical()
+
+
+def _wire(store) -> list:
+    """Each chunk-service client's round trips, reconnects and wire bytes
+    under a caching store."""
+    remote = store.remote
+    if hasattr(remote, "health"):
+        return remote.health()
+    return [{"endpoint": remote.endpoint,
+             **{k: remote.stats[k] for k in ("round_trips", "reconnects",
+                                             "bytes_uploaded",
+                                             "bytes_fetched")}}]
+
+
+def _referenced_bytes(ckpt_dir: Path) -> int:
+    """Stored bytes of every chunk the checkpoint references, once each."""
+    from repro_torch.checkpoint import serialization as ser
+    clen = {s["chunk"]: s["clen"]
+            for e in ser.load_manifest(ckpt_dir)["leaves"].values()
+            for s in e["shards"]}
+    return sum(clen.values())
+
+
+def _timed_restore(mgr, template):
+    t0 = time.perf_counter()
+    out, meta = mgr.restore(template, device=DEV)
+    sync()
+    return out, meta, time.perf_counter() - t0
+
+
+def _remote_leg(kind, state, template, step_fn, batch, root: Path) -> dict:
+    """One storage leg of the TrainState: save + wait; an unchanged
+    re-save; the writer's cache deleted, then a restore onto the card from
+    an empty cache (a fresh host) and one from the warm cache; for the sharded leg, one server
+    SIGKILLed and a restore from a second empty cache; then one training
+    step from the cold restore.  Servers are stopped and the leg's
+    directories deleted before it returns."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    root.mkdir(parents=True)
+    disk_free = shutil.disk_usage(root).free
+    servers = _start_servers(REMOTE_LEGS[kind], root)
+    stores = []
+
+    def manager(cache):
+        if not servers:
+            return CheckpointManager(root / "ckpt")
+        mgr = CheckpointManager(root / "ckpt",
+                                store=_store_spec(servers, "train", cache))
+        stores.append(mgr.store)
+        return mgr
+
+    out = {"servers": [s.endpoint for s in servers],
+           "disk_free_bytes": disk_free}
+    try:
+        writer = manager(root / "cache-writer")
+        t0 = time.perf_counter()
+        writer.save(0, state)
+        writer.wait()
+        out["save_s"] = time.perf_counter() - t0
+        out["save"] = {k: writer.stats[k] for k in _SAVE_STATS + (
+            "last_bytes_uploaded", "last_bytes_referenced_remote")}
+        out["bytes_uploaded"] = writer.stats["last_bytes_uploaded"]
+        out["bytes_referenced_remote"] = \
+            writer.stats["last_bytes_referenced_remote"]
+        out["remote_transfer_fraction"] = writer.remote_transfer_fraction()
+        t0 = time.perf_counter()
+        writer.save(1, state)
+        writer.wait()
+        out["resave_s"] = time.perf_counter() - t0
+        out["resave"] = {k: writer.stats[k] for k in (
+            "last_bytes_written", "last_bytes_referenced",
+            "last_bytes_uploaded", "last_bytes_referenced_remote")}
+        out["resave_remote_transfer_fraction"] = \
+            writer.remote_transfer_fraction()
+        referenced = _referenced_bytes(root / "ckpt" / "step_0000000001")
+        out["bytes_referenced_by_checkpoint"] = referenced
+        # the writing host is gone: a reader sees only the step dirs and
+        # the servers (the manifest's chunk_dir names the writer's cache)
+        shutil.rmtree(root / "cache-writer", ignore_errors=True)
+
+        reader = manager(root / "cache-cold")
+        restored, meta, out["restore_cold_s"] = _timed_restore(reader,
+                                                               template)
+        # prefetch: the batched fetch of every chunk the cache lacks
+        out["restore_cold"] = {k: reader.stats.get(k) for k in _RESTORE_STATS
+                               + ("restore_prefetch_s",
+                                  "restore_prefetch_bytes")}
+        out["cold_equal"] = _leaves_equal(state, restored) and \
+            meta["step"] == 1
+        fetched = reader.store.stats.get("bytes_fetched")
+        out["bytes_fetched_cold"] = fetched
+        warm, _, out["restore_warm_s"] = _timed_restore(reader, template)
+        out["warm_equal"] = _leaves_equal(state, warm)
+        del warm
+        out["bytes_fetched_warm"] = (None if fetched is None else
+                                     reader.store.stats["bytes_fetched"]
+                                     - fetched)
+        if servers:
+            out["round_trips"] = {"writer": _wire(writer.store),
+                                  "cold_reader": _wire(reader.store)}
+            out["server_stats"] = writer.store.remote.server_stats()
+            if kind != "sharded":
+                out["server_stats"] = {servers[0].endpoint:
+                                       out["server_stats"]}
+            out["store_health"] = writer.store_health()
+        if kind == "sharded":
+            victim = servers[1]
+            victim.kill()
+            killed = manager(root / "cache-after-kill")
+            again, _, out["restore_after_kill_s"] = _timed_restore(killed,
+                                                                   template)
+            out["after_kill_equal"] = _leaves_equal(state, again)
+            del again
+            out["bytes_fetched_after_kill"] = \
+                killed.store.stats["bytes_fetched"]
+            out["killed_server"] = victim.endpoint
+            out["store_health_after_kill"] = killed.store_health()
+            out["down_after_kill"] = [h["endpoint"]
+                                      for h in killed.store_health()
+                                      if not h["up"]]
+        sync()
+        _, metrics = step_fn(restored, batch)
+        out["step_loss"] = float(metrics["loss"])
+        del restored, metrics
+    finally:
+        for store in stores:
+            store.close()
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        free()
+    out["ok"] = bool(
+        out["cold_equal"] and out["warm_equal"]
+        and math.isfinite(out["step_loss"])
+        and (out["resave"]["last_bytes_written"] == 0 if kind == "local"
+             else out["resave"]["last_bytes_uploaded"] == 0
+             and out["bytes_uploaded"] > 0
+             and out["bytes_fetched_cold"] == referenced
+             and out["bytes_fetched_warm"] == 0)
+        and (kind != "sharded"
+             or (out["after_kill_equal"]
+                 and out["bytes_fetched_after_kill"] == referenced
+                 and out["down_after_kill"] == [out["killed_server"]])))
+    return out
+
+
+def _hybrid_remote_leg(root: Path) -> dict:
+    """recurrentgemma-9b's serving snapshot through a sharded store
+    (three servers, replicas=2): decode resumes from it, restored onto the
+    card from an empty cache, with the live engine's tokens."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    free_and_reset_peak()
+    servers = _start_servers(3, root)
+    stores = []
+    out = {"servers": [s.endpoint for s in servers]}
+    try:
+        eng, res, out["prefill_launches"] = _hybrid_engine()
+        writer = CheckpointManager(root / "snap", store=_store_spec(
+            servers, "serve", root / "cache-writer"))
+        stores.append(writer.store)
+        t0 = time.perf_counter()
+        eng.snapshot_service(writer, 0)
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes_uploaded"] = writer.stats["last_bytes_uploaded"]
+        shutil.rmtree(root / "cache-writer")       # the writing host is gone
+        host = _snapshot_host_copy(eng, res)
+        live, _ = _continue(eng, eng.cache, res.tokens, eng.pos,
+                            SNAPSHOT_CONTINUE)
+        reader = CheckpointManager(root / "snap", store=_store_spec(
+            servers, "serve", root / "cache-cold"))
+        stores.append(reader.store)
+        snap, meta, out["restore_cold_s"] = _timed_restore(reader, host)
+        out["bytes_fetched_cold"] = reader.store.stats["bytes_fetched"]
+        out["bytes_referenced_by_checkpoint"] = _referenced_bytes(
+            root / "snap" / "step_0000000000")
+        out["leaves_equal"] = _leaves_equal(host, snap)
+        cont, _ = _continue(eng, snap["cache"],
+                            snap["generated"].cpu().numpy(), snap["pos"],
+                            SNAPSHOT_CONTINUE)
+        out["tokens_equal"] = bool(torch.equal(live, cont))
+        out["continuation_tokens"] = live.tolist()
+        out["server_stats"] = writer.store.remote.server_stats()
+        out["store_health"] = reader.store_health()
+        del eng, snap, host
+    finally:
+        for store in stores:
+            store.close()
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        free()
+    out["ok"] = bool(out["leaves_equal"] and out["tokens_equal"]
+                     and meta["kind"] == "serve"
+                     and out["bytes_fetched_cold"]
+                     == out["bytes_referenced_by_checkpoint"])
+    return out
+
+
+def phase_checkpoint_remote(card_line):
+    """The TrainState of full-width smollm-135m, after PRE_STEPS training
+    steps, through CheckpointManager in three storage legs (REMOTE_LEGS:
+    its own directory; one chunk server; three with replicas=2), each leg
+    ending in one bf16 training step through the flash kernel from its
+    restore, under deterministic algorithms: every leg's loss must equal
+    the local leg's.  Then the hybrid's serving snapshot through a
+    sharded store.  The counts are set to 0 just before the legs and read
+    just after the hybrid leg."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.state import make_train_state, train_state_template
+    from repro_torch.train.step import make_train_step
+    cfg = get_arch(ARCH)
+    t = TRAIN
+    free_and_reset_peak()
+    step_fn = make_train_step(cfg, base_lr=t["lr"], warmup=t["warmup"],
+                              total_steps=t["steps"], max_seq=t["seq"])
+    pipe = TokenPipeline(cfg.vocab_size, t["batch"], t["seq"])
+    batches = [{k: torch.as_tensor(v, device=DEV)
+                for k, v in pipe.next_batch().items()}
+               for _ in range(PRE_STEPS + 1)]
+    template = train_state_template(cfg, t["seq"])
+    legs = {}
+    _train_backend(True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            state = make_train_state(
+                cfg, torch.Generator(device=DEV).manual_seed(0), t["seq"],
+                device=DEV)
+            for batch in batches[:-1]:
+                state, _ = step_fn(state, batch)
+            sync()
+            n_bytes = sum(x.numel() * x.element_size()
+                          for x in tree_leaves(state))
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()          # the path starts here
+            for kind in REMOTE_LEGS:
+                legs[kind] = _remote_leg(kind, state, template, step_fn,
+                                         batches[-1], Path(work) / kind)
+            del state
+            free()
+            torch.use_deterministic_algorithms(False)
+            _train_backend(False)
+            hybrid = _hybrid_remote_leg(Path(work) / "hybrid")
+            counts = {"flash_attention_fwd": ops.FLASH_LAUNCHES,  # ... and
+                      "rglru_scan": ops.RGLRU_LAUNCHES,           # ends here
+                      "quantize_int8": ops.QUANT_LAUNCHES,
+                      "dequantize_int8": ops.DEQUANT_LAUNCHES}
+            phase_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _train_backend(False)
+    kinds = get_arch(HYBRID).layer_kinds()
+    want = {"flash_attention_fwd": len(REMOTE_LEGS) * 2 * cfg.n_layers
+            + kinds.count("local_attn"),
+            "rglru_scan": kinds.count("rglru"),
+            "quantize_int8": 0, "dequantize_int8": 0}
+    losses = {kind: leg["step_loss"] for kind, leg in legs.items()}
+    ok = (all(leg["ok"] for leg in legs.values()) and hybrid["ok"]
+          and len(set(losses.values())) == 1 and counts == want)
+    emit("checkpoint-remote", ok, card_line, arch=ARCH, dtype="float32",
+         state_bytes=n_bytes, pre_steps=PRE_STEPS, servers=REMOTE_SERVERS,
+         step_losses=losses, losses_equal=len(set(losses.values())) == 1,
+         launches=counts, expected_launches=want, phase_s=phase_s,
+         legs=legs, hybrid={"arch": HYBRID, **hybrid},
+         peak_bytes=peak_bytes())
+    return counts
+
+
 # -------------------------------------------------------------- timing
 
 def sdpa_route(args, kwargs) -> dict:
@@ -1580,6 +1961,7 @@ def main() -> int:
         phase_snapshot_hybrid(card_line)
         counts["train"] = phase_train(card_line)
         phase_train_resume(card_line)
+        counts["checkpoint-remote"] = phase_checkpoint_remote(card_line)
         free_and_reset_peak()
         timing = phase_timing(card_line)
     except PhaseFailed as e:

@@ -1,4 +1,4 @@
-"""Content-addressed chunk store (copy of the local half of
+"""Content-addressed chunk store (copy of
 ``repro.checkpoint.chunkstore``).
 
 A chunk is an immutable file named by the digest of its UNCOMPRESSED
@@ -25,9 +25,11 @@ the reference's:
     remote://host:port[/ns][?cache=DIR]               (one chunk server)
     remote://h1:p1,h2:p2,h3:p3[/ns][?cache=DIR&replicas=2]   (sharded)
 
-Only the local directory has a backend in the port so far: a remote spec
-raises ``NotImplementedError`` (the chunk-service client is ROADMAP.md,
-Queue 1, item 2), and never falls back to a local store.
+A local spec opens a ``ChunkStore`` (below); a remote one opens the
+chunk-service client of ``checkpoint/chunkservice.py`` — a
+``RemoteChunkStore`` for one endpoint, a ``ShardedChunkStore`` for several,
+behind a ``CachingChunkStore`` when the spec names a cache directory.  An
+unreachable server raises; nothing falls back to a local store.
 """
 from __future__ import annotations
 
@@ -224,9 +226,11 @@ def _fresh_stats() -> Dict[str, int]:
 class ChunkStoreBackend:
     """The storage interface both checkpoint layers write against.
 
-    Implementations: ``ChunkStore`` (one local directory — below); the
-    reference's networked backends (``repro.checkpoint.chunkservice``)
-    are not ported yet.  All must be thread-safe: ``put`` runs
+    Implementations: ``ChunkStore`` (one local directory — below),
+    ``RemoteChunkStore`` (a socket client to a ``ChunkServer``),
+    ``ShardedChunkStore`` (several servers, replicated) and
+    ``CachingChunkStore`` (local cache over a remote, fetch-on-miss) in
+    checkpoint/chunkservice.py.  All must be thread-safe: ``put`` runs
     concurrently from writer-pool threads.
 
     ``stats`` carries at least the counters in ``_fresh_stats`` —
@@ -310,8 +314,10 @@ def open_store(spec, default=None) -> "ChunkStoreBackend":
     """The resolution point from a spec to a backend:
 
       * an existing ``ChunkStoreBackend`` passes through untouched;
-      * a remote ``StoreSpec`` (or any ``remote://`` string
-        ``StoreSpec.parse`` accepts) raises ``NotImplementedError``;
+      * a ``StoreSpec`` (or any ``remote://`` string ``StoreSpec.parse``
+        accepts) builds the matching client: ``RemoteChunkStore`` for one
+        endpoint, ``ShardedChunkStore`` for several, wrapped in a
+        ``CachingChunkStore`` when the spec carries a cache dir;
       * anything else is a local directory -> ``ChunkStore``.
 
     ``default`` is used when `spec` is None.
@@ -324,9 +330,9 @@ def open_store(spec, default=None) -> "ChunkStoreBackend":
         return spec
     sp = StoreSpec.parse(spec)
     if sp.scheme == "remote":
-        raise NotImplementedError(
-            f"remote chunk store {sp.canonical()!r}: the port has only the "
-            f"local store so far (ROADMAP.md, Queue 1, item 2)")
+        # lazy: chunkservice imports this module
+        from repro_torch.checkpoint.chunkservice import store_from_spec
+        return store_from_spec(sp)
     return ChunkStore(sp.path)
 
 

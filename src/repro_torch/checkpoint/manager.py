@@ -58,9 +58,11 @@ class CheckpointManager:
         #: manifest, as the reference stamps it
         self.generation = generation
         #: content-addressed store shared by every step this manager
-        #: writes: a backend instance or a path (default: a local directory
-        #: under the manager root); a ``remote://`` spec raises
-        #: ``NotImplementedError`` (ROADMAP.md, Queue 1, item 2)
+        #: writes: a backend instance, a ``StoreSpec``, any spec string
+        #: ``StoreSpec.parse`` accepts (``remote://`` single or sharded),
+        #: or a path (default: a local directory under the manager root).
+        #: With a caching backend, saves upload only chunks the server
+        #: lacks and restores fetch only chunks the cache lacks.
         self.store = chunkstore.open_store(store,
                                            default=self.root / "chunks")
         #: compress/write pool width (<=1 disables the parallel pipeline)

@@ -1,8 +1,19 @@
 """The port's checkpoint layer (``repro_torch.checkpoint``) on the CPU:
 twins of tests/test_checkpoint.py, and step directories and serving
 snapshots crossing between the two packages in both directions, bit for
-bit.  The JAX managers write to a local store (``_jmgr``)."""
+bit.  The JAX managers write to a local store (``_jmgr``).
+
+The twins run in three storage legs (the ``store`` fixture): ``local``, a
+manager's own chunk directory; ``remote``, one port ChunkServer; and
+``sharded``, three with replicas=2.  The remote legs keep the chunk
+directory as the client's cache (path-shaped assertions keep holding) and
+give every manager root its own server namespace.  As tests/conftest.py
+does for the reference, REPRO_CKPT_STORE=remote|sharded runs the
+``local`` leg through that kind of store too, so the CI storage matrix
+covers the port."""
+import hashlib
 import json
+import os
 import threading
 
 import jax
@@ -21,6 +32,7 @@ from repro.models.layers import Policy as JPolicy
 from repro.models.params import init_params as j_init_params
 from repro.models.registry import get_api as j_get_api
 from repro.serve.engine import ServeEngine as JServeEngine
+from repro_torch.checkpoint import chunkservice as tcs
 from repro_torch.checkpoint import chunkstore as tstore
 from repro_torch.checkpoint import serialization as tser
 from repro_torch.checkpoint.manager import CheckpointManager as TManager
@@ -38,6 +50,43 @@ from test_torch_serve import (_agree_up_to_ties, _fp32_forward_logits,
                               _hybrid_setup, _setup)
 
 T32 = TPolicy(compute=torch.float32)
+
+_FORCED_STORE = os.environ.get("REPRO_CKPT_STORE") or None
+
+
+@pytest.fixture(scope="module")
+def chunk_servers(tmp_path_factory):
+    """Three port ChunkServers for the remote legs of this module."""
+    root = tmp_path_factory.mktemp("chunk-servers")
+    srvs = [tcs.ChunkServer(root / f"srv{i}").start() for i in range(3)]
+    yield srvs
+    for srv in srvs:
+        srv.stop()
+
+
+@pytest.fixture(params=["local", "remote", "sharded"])
+def store(request, chunk_servers):
+    """``store(root)``: the store spec a manager at `root` gets in this
+    leg (None: its own local chunk directory)."""
+    kind = request.param
+    if kind == "local" and _FORCED_STORE:
+        if _FORCED_STORE not in ("remote", "sharded"):
+            pytest.fail(f"REPRO_CKPT_STORE={_FORCED_STORE!r} not understood "
+                        f"(only 'remote' or 'sharded')")
+        kind = _FORCED_STORE
+    if kind == "local":
+        return lambda root: None
+    servers = chunk_servers if kind == "sharded" else chunk_servers[:1]
+
+    def spec(root):
+        ns = hashlib.blake2b(str(root.resolve()).encode(),
+                             digest_size=8).hexdigest()
+        return tstore.StoreSpec(
+            scheme="remote",
+            endpoints=tuple(f"{s.host}:{s.port}" for s in servers),
+            namespace=ns, replicas=2 if kind == "sharded" else None,
+            cache=str(root / "chunks")).canonical()
+    return spec
 
 
 def _state(seed=0):
@@ -74,8 +123,8 @@ def _assert_same(a, b):
 
 # ------------------------------------------------ twins of test_checkpoint
 
-def test_save_restore_roundtrip_exact(tmp_path):
-    mgr = TManager(tmp_path, keep=2)
+def test_save_restore_roundtrip_exact(tmp_path, store):
+    mgr = TManager(tmp_path, keep=2, store=store(tmp_path))
     st = _state()
     mgr.save(10, st)
     mgr.wait()
@@ -96,7 +145,7 @@ def test_shard_codec_roundtrip(tmp_path, codec):
     _assert_same(st, tser.restore_tree(tmp_path, _state()))
 
 
-def test_async_write_is_donation_safe(tmp_path, monkeypatch):
+def test_async_write_is_donation_safe(tmp_path, monkeypatch, store):
     """The host snapshot is a copy taken before save() returns: an
     in-place update of a CPU tensor right after it (what the next decode
     step does to the serving cache) must not reach the checkpoint, though
@@ -109,7 +158,7 @@ def test_async_write_is_donation_safe(tmp_path, monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(tser, "save_shards", held)
-    mgr = TManager(tmp_path, keep=2, async_write=True)
+    mgr = TManager(tmp_path, keep=2, async_write=True, store=store(tmp_path))
     x = torch.arange(1000, dtype=torch.float32)
     mgr.save(1, {"x": x})
     x.mul_(0).sub_(99)
@@ -123,8 +172,8 @@ def _chunks_of(ckpt_dir):
     return set(tser.manifest_chunks(tser.load_manifest(ckpt_dir)))
 
 
-def test_corruption_detected_and_skipped(tmp_path):
-    mgr = TManager(tmp_path, keep=5)
+def test_corruption_detected_and_skipped(tmp_path, store):
+    mgr = TManager(tmp_path, keep=5, store=store(tmp_path))
     mgr.save(1, _state(1)); mgr.wait()
     mgr.save(2, _state(2)); mgr.wait()
     newest = tmp_path / "step_0000000002"
@@ -138,8 +187,8 @@ def test_corruption_detected_and_skipped(tmp_path):
     assert meta["step"] == 1
 
 
-def test_restore_falls_back_past_size_preserving_bitflip(tmp_path):
-    mgr = TManager(tmp_path, keep=5)
+def test_restore_falls_back_past_size_preserving_bitflip(tmp_path, store):
+    mgr = TManager(tmp_path, keep=5, store=store(tmp_path))
     mgr.save(1, _state(1)); mgr.wait()
     mgr.save(2, _state(2)); mgr.wait()
     only2 = _chunks_of(tmp_path / "step_0000000002") \
@@ -154,8 +203,8 @@ def test_restore_falls_back_past_size_preserving_bitflip(tmp_path):
     _assert_same(_state(1), out)
 
 
-def test_bitflip_detected_by_deep_validate_and_restore(tmp_path):
-    mgr = TManager(tmp_path, keep=5)
+def test_bitflip_detected_by_deep_validate_and_restore(tmp_path, store):
+    mgr = TManager(tmp_path, keep=5, store=store(tmp_path))
     mgr.save(1, _state(1)); mgr.wait()
     d = tmp_path / "step_0000000001"
     assert tser.validate(d, deep=True)
@@ -169,8 +218,8 @@ def test_bitflip_detected_by_deep_validate_and_restore(tmp_path):
         tser.restore_tree(d, _state())
 
 
-def test_keep_k_gc(tmp_path):
-    mgr = TManager(tmp_path, keep=2)
+def test_keep_k_gc(tmp_path, store):
+    mgr = TManager(tmp_path, keep=2, store=store(tmp_path))
     for s in (1, 2, 3, 4):
         mgr.save(s, _state(s))
         mgr.wait()
@@ -178,8 +227,9 @@ def test_keep_k_gc(tmp_path):
     assert mgr.stats["gc_removed"] == 2
 
 
-def test_refcount_gc_keeps_shared_chunks(tmp_path):
-    mgr = TManager(tmp_path, keep=1, async_write=False)
+def test_refcount_gc_keeps_shared_chunks(tmp_path, store):
+    mgr = TManager(tmp_path, keep=1, async_write=False,
+                   store=store(tmp_path))
     st = _state(0)
     mgr.save(1, st)
     st2 = dict(st, step=torch.tensor(8, dtype=torch.int32))
@@ -192,8 +242,8 @@ def test_refcount_gc_keeps_shared_chunks(tmp_path):
     _assert_same(st2, out)
 
 
-def test_incremental_save_references_unchanged_chunks(tmp_path):
-    mgr = TManager(tmp_path, keep=3)
+def test_incremental_save_references_unchanged_chunks(tmp_path, store):
+    mgr = TManager(tmp_path, keep=3, store=store(tmp_path))
     st = _state(0)
     mgr.save(1, st)
     mgr.wait()
@@ -255,13 +305,26 @@ def test_save_and_restore_record_the_reference_spans(tmp_path, monkeypatch):
 
 
 def test_remote_store_and_absent_card_raise(tmp_path, monkeypatch):
-    """No fallback: a remote spec is not served by a local store, and a
-    restore onto CUDA without a card does not land on the CPU."""
-    for spec in ("remote://localhost:1", "remote://h1:1,h2:2/ns?replicas=2"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-            tstore.open_store(spec)
-        with pytest.raises(NotImplementedError):
-            TManager(tmp_path, store=spec)
+    """No fallback: each remote spec kind resolves to its chunk-service
+    client (as the reference's open_store does; nothing is dialed until
+    the first call), never to a local store; and a restore onto CUDA
+    without a card does not land on the CPU."""
+    cache = tmp_path / "cache"
+    for spec, want in [
+            ("remote://localhost:1", tcs.RemoteChunkStore),
+            ("remote://localhost:1/ns?cache=" + str(cache),
+             tcs.CachingChunkStore),
+            ("remote://h1:1,h2:2/ns?replicas=2", tcs.ShardedChunkStore),
+            ("remote://h1:1,h2:2/ns?cache=" + str(cache) + "&replicas=2",
+             tcs.CachingChunkStore)]:
+        st = tstore.open_store(spec)
+        assert type(st) is want and st.spec == spec
+        if want is tcs.CachingChunkStore:
+            assert type(st.remote) is (tcs.ShardedChunkStore if "," in spec
+                                       else tcs.RemoteChunkStore)
+        assert type(TManager(tmp_path / "m", store=spec).store) is want
+    with pytest.raises(OSError):            # refused: it raises, no fallback
+        tstore.open_store("remote://127.0.0.1:1").has("00ff.bin")
     mgr = TManager(tmp_path)
     mgr.save(1, _state())
     mgr.wait()

@@ -78,6 +78,7 @@ def smoke(monkeypatch):
                                            warmup=2, ckpt_every=4, fail_at=7,
                                            seed=0))
     monkeypatch.setattr(mod, "cuda_ms", lambda fn: (fn(), 1.0)[1])
+    monkeypatch.setattr(mod, "REMOTE_SERVERS", "threads")
 
     def flash(q, k, v, causal=True, window=0):
         return ref_flash_attention(q, k, v, causal=causal, window=window)
@@ -140,15 +141,20 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     smoke.phase_snapshot_hybrid(card)
     counts["train"] = smoke.phase_train(card)
     smoke.phase_train_resume(card)
+    counts["checkpoint-remote"] = smoke.phase_checkpoint_remote(card)
     # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks;
-    # training launches flash twice a layer (remat), 10 steps
+    # training launches flash twice a layer (remat), 10 steps; the remote
+    # phase's three legs one step each, and the hybrid leg one prefill
     assert counts == {
         "serve": {"flash_attention_fwd": 3, "rglru_scan": 0,
                   "quantize_int8": 0, "dequantize_int8": 0},
         "serve-hybrid": {"flash_attention_fwd": 2, "rglru_scan": 6,
                          "quantize_int8": 0, "dequantize_int8": 0},
         "train": {"flash_attention_fwd": 60, "rglru_scan": 0,
-                  "quantize_int8": 0, "dequantize_int8": 0}}
+                  "quantize_int8": 0, "dequantize_int8": 0},
+        "checkpoint-remote": {"flash_attention_fwd": 3 * 6 + 2,
+                              "rglru_scan": 6, "quantize_int8": 0,
+                              "dequantize_int8": 0}}
     timing = smoke.phase_timing(card)
     row = timing[("flash_attention_fwd", "serve")]
     # q + o (36x128x64) and k, v (12x128x64), bf16, over 3.35 TB/s
@@ -158,9 +164,10 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     line = smoke.kernels_line(errs, counts, timing)["kernels"]
     assert [k["name"] for k in line] == ["flash_attention_fwd", "rglru_scan",
                                          "quantize_int8", "dequantize_int8"]
-    assert [k["launches"] for k in line] == [65, 6, 0, 0]
+    assert [k["launches"] for k in line] == [85, 12, 0, 0]
     assert line[0]["launches_by_path"] == {"serve": 3, "serve-hybrid": 2,
-                                           "train": 60}
+                                           "train": 60,
+                                           "checkpoint-remote": 20}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) and (ROOT / k["source"]).exists() for k in line)
@@ -172,7 +179,7 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     rglru = line[1]
     assert set(rglru["at_shapes"]) == {"serve-hybrid", "serve-parity-hybrid",
                                        "bf16-inputs"}
-    assert rglru["max_abs_err"] == 0.0 and rglru["launches"] == 6
+    assert rglru["max_abs_err"] == 0.0 and rglru["launches"] == 12
     scratch = timing[("rglru_scan", "serve-hybrid")]["scratch"]
     assert scratch["tiles"] == 2 * 2 * 1       # 2 chunks x 2 rows x 1 tile
     assert {"serving_ms", "counting_ms"} <= set(scratch)
@@ -181,7 +188,7 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     assert [ln["phase"] for ln in lines] == [
         "kernels", "serve-parity", "serve", "checkpoint",
         "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid", "train",
-        "train-resume", "timing"]
+        "train-resume", "checkpoint-remote", "timing"]
     assert all(ln["ok"] for ln in lines)
     phase = {ln["phase"]: ln for ln in lines}
     # the smollm snapshot: k and v of the stacked cache, pos, generated
@@ -205,6 +212,79 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     assert resume["last_loss_diff"] == 0.0
     assert resume["train_state"]["leaves_equal"]
     assert resume["train_state"]["rng_dtype"] == "torch.uint32"
+    _check_remote_phase(phase["checkpoint-remote"])
+
+
+def _check_remote_phase(remote):
+    """The checkpoint-remote line: every leg restored bit-equal cold and
+    warm, the unchanged re-save uploaded nothing, a cold restore fetched
+    exactly the checkpoint's bytes, every leg's step gave one loss, and
+    the sharded leg survived its killed server and reported it down."""
+    legs = remote["legs"]
+    assert list(legs) == ["local", "remote", "sharded"]
+    assert remote["losses_equal"] and len(set(remote["step_losses"].values())) == 1
+    for kind, leg in legs.items():
+        assert leg["ok"] and leg["cold_equal"] and leg["warm_equal"], kind
+        assert {"save_s", "resave_s", "restore_cold_s", "restore_warm_s",
+                "bytes_uploaded", "bytes_referenced_remote",
+                "remote_transfer_fraction", "disk_free_bytes"} <= set(leg)
+    assert legs["local"]["resave"]["last_bytes_written"] == 0
+    for kind in ("remote", "sharded"):
+        leg = legs[kind]
+        assert leg["resave"]["last_bytes_uploaded"] == 0
+        assert leg["resave_remote_transfer_fraction"] == 0.0
+        assert leg["bytes_uploaded"] > 0
+        assert leg["bytes_fetched_cold"] == \
+            leg["bytes_referenced_by_checkpoint"]
+        assert leg["bytes_fetched_warm"] == 0
+        assert len(leg["server_stats"]) == len(leg["servers"])
+        assert all(w["round_trips"] > 0
+                   for w in leg["round_trips"]["writer"])
+    sharded = legs["sharded"]
+    assert len(sharded["servers"]) == 3
+    assert sharded["down_after_kill"] == [sharded["killed_server"]]
+    assert sharded["after_kill_equal"]
+    assert [h["up"] for h in sharded["store_health"]] == [True] * 3
+    hybrid = remote["hybrid"]
+    assert hybrid["ok"] and hybrid["leaves_equal"] and hybrid["tokens_equal"]
+    assert hybrid["bytes_fetched_cold"] == \
+        hybrid["bytes_referenced_by_checkpoint"]
+
+
+def test_chip_smoke_sharded_leg_survives_a_killed_shard(smoke, capsys):
+    """The checkpoint-remote phase alone: its sharded leg SIGKILLs (here:
+    stops) one of three servers, restores bit-equal from an empty cache
+    through the other two, reports that server down, and the phase
+    passes."""
+    counts = smoke.phase_checkpoint_remote("cpu rehearsal, 0 W")
+    assert counts["flash_attention_fwd"] == 3 * 6 + 2
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["phase"] == "checkpoint-remote" and line["ok"]
+    _check_remote_phase(line)
+    down = [h for h in line["legs"]["sharded"]["store_health_after_kill"]
+            if not h["up"]]
+    assert len(down) == 1 and down[0]["cooldown_s"] > 0
+
+
+def test_chip_smoke_dead_single_server_fails_the_phase(smoke, monkeypatch,
+                                                       capsys):
+    """A single chunk server that is dead when the remote leg saves makes
+    the phase fail: the save raises, no checkpoint-remote line is printed
+    ok, nothing falls back to a local directory."""
+    start = smoke._start_servers
+
+    def dead_when_alone(n, root):
+        servers = start(n, root)
+        if n == 1:
+            servers[0].kill()
+        return servers
+
+    monkeypatch.setattr(smoke, "_start_servers", dead_when_alone)
+    with pytest.raises(RuntimeError, match="async checkpoint write failed") \
+            as info:
+        smoke.phase_checkpoint_remote("cpu rehearsal, 0 W")
+    assert isinstance(info.value.__cause__, ConnectionError)
+    assert '"checkpoint-remote"' not in capsys.readouterr().out
 
 
 def test_chip_smoke_bounds_at_the_serving_shapes(smoke):
