@@ -32,7 +32,15 @@ one JSON line each; any failure exits non-zero:
   serve          the repro_torch.launch.serve path, smollm-135m at full
                  width, bf16, B=4, prompt 128, 32 new tokens: a main path,
                  its launch count; with --snapshot-dir, and the serving
-                 snapshot it writes validates and lists the payload's leaves
+                 snapshot it writes validates and lists the payload's leaves.
+                 The engine serves through CUDA graphs, captured in that
+                 round (capture_s); then on the same engine a second
+                 request of the same shape (its prefill_s, decode_s, and
+                 launches through the replays, nothing captured again),
+                 both requests' tokens and last-step logits bit-equal to
+                 the same requests run uncaptured (timed: the numbers
+                 before capture), one decode step and one prefill under
+                 the profiler both ways, peak memory
   checkpoint     full-width smollm-135m's fp32 params on the card through
                  CheckpointManager: save, wait, restore onto the card,
                  bit-equal leaves; an unchanged re-save writes 0 bytes; the
@@ -44,10 +52,12 @@ one JSON line each; any failure exits non-zero:
                  greedy tokens end to end at a 5-layer cut
   serve-hybrid   the repro_torch.launch.serve path, recurrentgemma-9b at full
                  width, bf16, B=2, prompt 2560, 32 new tokens: the other main
-                 path; 12 flash and 26 RG-LRU launches, peak memory
+                 path; 12 flash and 26 RG-LRU launches, peak memory, and the
+                 graph checks of serve
   snapshot-hybrid
                  full-width recurrentgemma-9b, bf16, B=2, prompt 2560, 32 new
-                 tokens through the kernels, then snapshot_service; 8 more
+                 tokens through the kernels and the engine's graphs, then
+                 snapshot_service; 8 more
                  decode steps on the live engine, and 8 from the snapshot
                  restored onto the card: restored leaves bit-equal to the
                  host copy taken at snapshot time, equal tokens
@@ -743,7 +753,7 @@ def phase_serve_parity_hybrid(card_line):
 
 def _serve(arch, batch, prompt, new_tokens, snapshot_dir=None):
     """One round of the serving CLI, with every count set to 0 just before
-    and read just after it."""
+    and read just after it.  Returns its row, the counts and the engine."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
@@ -751,12 +761,125 @@ def _serve(arch, batch, prompt, new_tokens, snapshot_dir=None):
     if snapshot_dir is not None:
         argv += ["--snapshot-dir", str(snapshot_dir)]
     ops.reset_launch_counts()                   # the main path starts here
-    rows = serve.main(argv)
-    counts = {"flash_attention_fwd": ops.FLASH_LAUNCHES,   # ... and ends here
-              "rglru_scan": ops.RGLRU_LAUNCHES,
-              "quantize_int8": ops.QUANT_LAUNCHES,
-              "dequantize_int8": ops.DEQUANT_LAUNCHES}
-    return rows[-1], counts
+    rows, eng = serve.run(argv)
+    return rows[-1], _launches(), eng           # ... and ends here
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import ops
+    return {"flash_attention_fwd": ops.FLASH_LAUNCHES,
+            "rglru_scan": ops.RGLRU_LAUNCHES,
+            "quantize_int8": ops.QUANT_LAUNCHES,
+            "dequantize_int8": ops.DEQUANT_LAUNCHES}
+
+
+def _uncaptured(eng, prompts, n_new) -> dict:
+    """The engine's request run uncaptured on the same device: the model's
+    prefill into a cache of its own, then the ``_continue`` loop, each op
+    dispatched from Python, each clock read after a synchronize."""
+    import torch
+    b, p = prompts.shape
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=DEV)
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = eng.api.prefill(eng.cfg, eng.params, tokens, {},
+                                        eng.max_seq, eng.policy)
+        first = torch.argmax(logits, dim=-1)[:, None]
+        sync()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rest, step_logits = _continue(
+            eng, cache, first.cpu().numpy(),
+            torch.full((b,), p + 1, dtype=torch.long, device=DEV), n_new - 1)
+        sync()
+        decode_s = time.perf_counter() - t0
+    return {"tokens": torch.cat([first.cpu(), rest], dim=1).numpy(),
+            "logits": step_logits[-1], "prefill_s": prefill_s,
+            "decode_s": decode_s, "decode_step_ms": decode_s / (n_new - 1) * 1e3}
+
+
+def _profile_steps(eng, b, p) -> dict:
+    """One decode step and one prefill under the profiler, each as the
+    engine runs it (on CUDA: its graph's replay) and uncaptured (its
+    step function called eagerly), over the engine's own buffers."""
+    import functools
+
+    import torch
+    batch, prompt = eng._batches[b], eng._prompts[((b, p), ())]
+    with torch.inference_mode():
+        prefill, decode = eng._programs(batch, prompt)
+        steps = {"decode": (functools.partial(eng._decode_step, batch), decode),
+                 "prefill": (functools.partial(eng._prefill_step, batch,
+                                               prompt), prefill)}
+        return {name: {"uncaptured": profile_step(eager, top=5),
+                       "captured": profile_step(run, top=5)}
+                for name, (eager, run) in steps.items()}
+
+
+def _graph_checks(eng, batch, prompt, new_tokens) -> dict:
+    """After the main path's round, which captured the engine's graphs: a
+    second request of the same shape (new prompts, the same graphs), both
+    requests' tokens and last-step logits against the same request run
+    uncaptured on the device (bit for bit), the launches of the second
+    request, and the profiles.  The first request's prompts are the
+    CLI's (``launch/serve.py``: seed 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    prompts = [np.random.default_rng(seed).integers(
+        0, eng.cfg.vocab_size, (batch, prompt)).astype(np.int32)
+        for seed in (0, 1)]
+    captured = [{"tokens": eng.generated[-1],
+                 "logits": eng._batches[batch].logits.clone()}]
+    capture_s = eng.capture_s
+    _backends(True)                             # what the CLI selected
+    try:
+        ops.reset_launch_counts()
+        res = eng.generate(prompts[1], new_tokens)
+        launches = _launches()
+        captured.append({"tokens": res.tokens,
+                         "logits": eng._batches[batch].logits.clone()})
+        plain = [_uncaptured(eng, p, new_tokens) for p in prompts]
+        profiles = _profile_steps(eng, batch, prompt)
+    finally:
+        _backends(False)
+    # each profiled step's device time over its time outside the profiler
+    step_s = {"decode": {"captured": res.decode_s / (new_tokens - 1),
+                         "uncaptured": plain[1]["decode_s"] / (new_tokens - 1)},
+              "prefill": {"captured": res.prefill_s,
+                          "uncaptured": plain[1]["prefill_s"]}}
+    for name, ways in profiles.items():
+        for way, prof in ways.items():
+            prof["step_s"] = step_s[name][way]
+            prof["device_share_of_step"] = (
+                None if prof["device_s"] is None
+                else prof["device_s"] / prof["step_s"])
+    diffs = [float((c["logits"].float() - u["logits"].float()).abs().max())
+             for c, u in zip(captured, plain)]
+    return {
+        "capture_s": capture_s, "recaptured": eng.capture_s != capture_s,
+        "second_request": {
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "decode_step_ms": res.decode_s / (new_tokens - 1) * 1e3,
+            "tok_per_s": res.tokens_per_s, "launches": launches},
+        "uncaptured": {k: plain[1][k] for k in ("prefill_s", "decode_s",
+                                                "decode_step_ms")},
+        "tokens_equal": [bool(np.array_equal(c["tokens"], u["tokens"]))
+                         for c, u in zip(captured, plain)],
+        "logits_equal": [bool(torch.equal(c["logits"], u["logits"]))
+                         for c, u in zip(captured, plain)],
+        "logits_max_abs_diff": diffs, "profiles": profiles}
+
+
+def _graphs_ok(checks, launches, want) -> bool:
+    """Both requests bit-equal to their uncaptured runs, the second one's
+    launches those of the first (through the replays, nothing captured
+    again), and capture time spent on the card only."""
+    return (all(checks["tokens_equal"]) and all(checks["logits_equal"])
+            and checks["second_request"]["launches"] == launches == want
+            and not checks["recaptured"]
+            and (checks["capture_s"] > 0) == (DEV == "cuda"))
 
 
 def _payload_leaves(arch, batch, max_seq) -> int:
@@ -773,21 +896,29 @@ def phase_serve(card_line):
     from repro_torch.checkpoint import serialization as ser
     from repro_torch.checkpoint.resharding import plan_summary
     from repro_torch.configs import get_arch
+    free_and_reset_peak()
     with tempfile.TemporaryDirectory() as snap:
-        row, counts = _serve(ARCH, 4, 128, 32, snap)
+        row, counts, eng = _serve(ARCH, 4, 128, 32, snap)
+        peak = peak_bytes()
         step = Path(snap) / "step_0000000000"
         valid = ser.validate(step, deep=True)
         plan = plan_summary(step)
     n_layers = get_arch(ARCH).n_layers        # one launch per layer
+    want = {"flash_attention_fwd": n_layers, "rglru_scan": 0,
+            "quantize_int8": 0, "dequantize_int8": 0}
+    checks = _graph_checks(eng, 4, 128, 32)
+    del eng
+    free()
     want_leaves = _payload_leaves(ARCH, 4, 128 + 32 + 8)
-    ok = (counts["flash_attention_fwd"] == n_layers
-          and row["flash_launches"] == n_layers
+    ok = (counts == want and row["flash_launches"] == n_layers
+          and _graphs_ok(checks, counts, want)
           and row["prefill_s"] > 0 and row["decode_s"] > 0
           and valid and plan["n_leaves"] == want_leaves)
     emit("serve", ok, card_line, arch=ARCH, batch=4, prompt_len=128,
          new_tokens=32, dtype="bfloat16", prefill_s=row["prefill_s"],
          decode_s=row["decode_s"], tok_per_s=row["tok_per_s"],
          flash_launches=counts["flash_attention_fwd"], launches=counts,
+         peak_bytes=peak, **checks,
          snapshot={"valid": valid, "n_leaves": plan["n_leaves"],
                    "expected_leaves": want_leaves,
                    "approx_bytes": plan["approx_bytes"],
@@ -872,19 +1003,25 @@ def phase_serve_hybrid(card_line):
     from repro_torch.configs import get_arch
     free_and_reset_peak()
     hs = HYBRID_SERVE
-    row, counts = _serve(HYBRID, hs["batch"], hs["prompt"], hs["new_tokens"])
+    row, counts, eng = _serve(HYBRID, hs["batch"], hs["prompt"],
+                              hs["new_tokens"])
+    peak = peak_bytes()
     kinds = get_arch(HYBRID).layer_kinds()
     want = {"flash_attention_fwd": kinds.count("local_attn"),   # 12
             "rglru_scan": kinds.count("rglru"),                 # 26
             "quantize_int8": 0, "dequantize_int8": 0}
+    checks = _graph_checks(eng, hs["batch"], hs["prompt"], hs["new_tokens"])
+    del eng
+    free()
     ok = (counts == want and row["flash_launches"] == want["flash_attention_fwd"]
           and row["rglru_launches"] == want["rglru_scan"]
+          and _graphs_ok(checks, counts, want)
           and row["prefill_s"] > 0 and row["decode_s"] > 0)
     emit("serve-hybrid", ok, card_line, arch=HYBRID, batch=hs["batch"],
          prompt_len=hs["prompt"], new_tokens=hs["new_tokens"],
          dtype="bfloat16", prefill_s=row["prefill_s"],
          decode_s=row["decode_s"], tok_per_s=row["tok_per_s"],
-         launches=counts, expected_launches=want, peak_bytes=peak_bytes())
+         launches=counts, expected_launches=want, peak_bytes=peak, **checks)
     return counts
 
 
@@ -960,6 +1097,7 @@ def phase_snapshot_hybrid(card_line):
     hs = HYBRID_SERVE
     ops.reset_launch_counts()
     eng, res, launches = _hybrid_engine()
+    capture_s = eng.capture_s                   # the snapshot is a graph's
     with tempfile.TemporaryDirectory() as root:
         mgr = CheckpointManager(root)
         t0 = time.perf_counter()
@@ -985,12 +1123,14 @@ def phase_snapshot_hybrid(card_line):
     sync()
     logits_diff = float((live_logits.float() - cont_logits.float()).abs().max())
     ok = (equal and torch.equal(live, cont) and meta["kind"] == "serve"
-          and bool(torch.isfinite(cont_logits).all()))
+          and bool(torch.isfinite(cont_logits).all())
+          and (capture_s > 0) == (DEV == "cuda"))
     del eng, snap, live_logits, cont_logits
     emit("snapshot-hybrid", ok, card_line, arch=HYBRID, dtype="bfloat16",
          batch=hs["batch"], prompt_len=hs["prompt"],
          new_tokens=hs["new_tokens"], continue_steps=SNAPSHOT_CONTINUE,
-         prefill_launches=launches, snapshot_leaves=plan["n_leaves"],
+         capture_s=capture_s, prefill_launches=launches,
+         snapshot_leaves=plan["n_leaves"],
          snapshot_bytes=plan["approx_bytes"],
          compressed_bytes=plan.get("compressed_bytes"), encodings=encodings,
          save_s=save_s, save=save, restore_s=restore_s, restore=restore,
@@ -1132,7 +1272,8 @@ def _step_update_against_plain_adamw(cfg):
 def profile_step(fn, top: int = 20) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall time (ended by
     a synchronize), the device time of every kernel summed (a kernel's
-    self time), the busy share (device over wall), and the ``top`` kernels
+    self time), the busy share (device over wall), the device ops it ran
+    (kernels, copies and sets, each launch once), and the ``top`` kernels
     by device time: name, launches, ms.  On the CPU the table is of CPU
     ops and the device fields are None."""
     from torch.profiler import ProfilerActivity, profile
@@ -1156,6 +1297,7 @@ def profile_step(fn, top: int = 20) -> dict:
     device_s = sum(self_us(e) for e in events) / 1e6 if cuda else None
     return {"wall_s": wall, "device_s": device_s,
             "busy_share": device_s / wall if cuda else None,
+            "device_ops": sum(e.count for e in events) if cuda else None,
             "top": [[e.key[:120], e.count, self_us(e) / 1e3]
                     for e in events[:top]]}
 
@@ -1950,23 +2092,35 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card_line = card()
+    seconds = {}
+
+    def run(name, phase):
+        t0 = time.perf_counter()
+        try:
+            return phase(card_line)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
     try:
-        phase_build(card_line)
-        errs = phase_kernels(card_line)
-        phase_serve_parity(card_line)
-        counts = {"serve": phase_serve(card_line)}
-        phase_checkpoint(card_line)
-        phase_serve_parity_hybrid(card_line)
-        counts["serve-hybrid"] = phase_serve_hybrid(card_line)
-        phase_snapshot_hybrid(card_line)
-        counts["train"] = phase_train(card_line)
-        phase_train_resume(card_line)
-        counts["checkpoint-remote"] = phase_checkpoint_remote(card_line)
+        run("build", phase_build)
+        errs = run("kernels", phase_kernels)
+        run("serve-parity", phase_serve_parity)
+        counts = {"serve": run("serve", phase_serve)}
+        run("checkpoint", phase_checkpoint)
+        run("serve-parity-hybrid", phase_serve_parity_hybrid)
+        counts["serve-hybrid"] = run("serve-hybrid", phase_serve_hybrid)
+        run("snapshot-hybrid", phase_snapshot_hybrid)
+        counts["train"] = run("train", phase_train)
+        run("train-resume", phase_train_resume)
+        counts["checkpoint-remote"] = run("checkpoint-remote",
+                                          phase_checkpoint_remote)
         free_and_reset_peak()
-        timing = phase_timing(card_line)
+        timing = run("timing", phase_timing)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)
         return 1
+    finally:
+        print(json.dumps({"phase_seconds": seconds}), file=sys.stderr)
     print(json.dumps(kernels_line(errs, counts, timing)))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

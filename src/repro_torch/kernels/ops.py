@@ -8,7 +8,13 @@ forward.
 
 Each counter counts launches of one kernel (and only those), so a run can
 show that its path went through the kernel: ``FLASH_LAUNCHES``,
-``RGLRU_LAUNCHES``, ``QUANT_LAUNCHES`` and ``DEQUANT_LAUNCHES``.
+``RGLRU_LAUNCHES``, ``QUANT_LAUNCHES`` and ``DEQUANT_LAUNCHES``.  A wrapper
+counts when Python launches its kernel, so a CUDA graph would count its
+capture and never its replays: ``capture_launches`` records what a capture
+put into a graph (and takes it back off the counters: a capture runs
+nothing), and ``CountedGraph.replay`` adds it again on every replay.
+Launches inside ``uncounted()`` (a graph's warm-up) are set-up, not served
+work, and are taken back off too.
 
 ``flash_attention`` is an ``autograd.Function``, as the reference's is a
 custom_vjp: the forward is the kernel (its plain version on the CPU), and
@@ -19,6 +25,8 @@ reference's has no vjp (its model trains through the plain scan): it
 raises on a tensor that requires grad.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -34,9 +42,55 @@ QUANT_LAUNCHES = 0
 DEQUANT_LAUNCHES = 0
 
 
+_COUNTERS = ("FLASH_LAUNCHES", "RGLRU_LAUNCHES", "QUANT_LAUNCHES",
+             "DEQUANT_LAUNCHES")
+
+
 def reset_launch_counts() -> None:
     global FLASH_LAUNCHES, RGLRU_LAUNCHES, QUANT_LAUNCHES, DEQUANT_LAUNCHES
     FLASH_LAUNCHES = RGLRU_LAUNCHES = QUANT_LAUNCHES = DEQUANT_LAUNCHES = 0
+
+
+def _counts() -> dict:
+    return {name: globals()[name] for name in _COUNTERS}
+
+
+def _add(launches: dict) -> None:
+    for name, n in launches.items():
+        globals()[name] += n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are taken back off the counters on exit."""
+    before = _counts()
+    try:
+        yield
+    finally:
+        _add({name: before[name] - n for name, n in _counts().items()})
+
+
+def capture_launches(capture) -> dict:
+    """Runs ``capture()`` (a CUDA graph's capture) and returns the launches
+    it counted, by counter name; the counters are left as they were."""
+    with uncounted():
+        before = _counts()
+        capture()
+        return {name: n - before[name] for name, n in _counts().items()
+                if n != before[name]}
+
+
+class CountedGraph:
+    """A captured graph and the launches it holds: each ``replay()``
+    replays it and adds them to the counters."""
+
+    def __init__(self, graph, launches: dict):
+        self.graph = graph
+        self.launches = dict(launches)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _add(self.launches)
 
 
 def _refuse_grad(name: str, *tensors) -> None:

@@ -12,8 +12,11 @@ go to the chunked path, as in the reference.  On CUDA it also selects the
 "kernel" recurrence backend for the RG-LRU blocks (recurrentgemma): the
 reference's model always runs its plain associative scan and calls the
 recurrence kernel from nowhere, so without the switch the hand-written
-kernel would never serve a request.  After each round it prints how many
-times the flash and the RG-LRU kernels were launched, and with
+kernel would never serve a request.  On CUDA the engine serves through
+CUDA graphs, captured in the first round of each shape
+(``serve/engine.py``).  After each round it prints how many times the
+flash and the RG-LRU kernels were launched (graph replays included), and
+with
 ``--snapshot-dir`` it then writes the serving state there
 (``ServeEngine.snapshot_service``, step = the round) and prints
 ``{"snapshot": dir, "step": round}``.
@@ -39,6 +42,11 @@ from repro_torch.serve.engine import ServeEngine
 
 def main(argv=None) -> list:
     """Runs the rounds; prints one JSON line per round and returns them."""
+    return run(argv)[0]
+
+
+def run(argv=None):
+    """``main``, returning the rows and the engine that served them."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
@@ -85,7 +93,7 @@ def main(argv=None) -> list:
         if args.snapshot_dir:
             eng.snapshot_service(CheckpointManager(args.snapshot_dir), step=r)
             print(json.dumps({"snapshot": args.snapshot_dir, "step": r}))
-    return rows
+    return rows, eng
 
 
 if __name__ == "__main__":

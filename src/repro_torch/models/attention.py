@@ -211,9 +211,13 @@ def attn_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
 
 
 def attn_prefill(cfg: ArchConfig, p, x, positions, max_cache: int, *,
-                 window: int = 0, policy=DEFAULT_POLICY, q_chunk: int = 1024):
+                 window: int = 0, policy=DEFAULT_POLICY, q_chunk: int = 1024,
+                 into=None):
     """Full-sequence attention that also materializes the decode KV cache
-    (post-rope keys, ring-buffer slots for windowed layers)."""
+    (post-rope keys, ring-buffer slots for windowed layers).  With ``into``
+    (dict{k,v} of (B, S(,window), KV, hd) buffers in the compute dtype) the
+    cache is written into it, zeros included, and nothing is allocated
+    for it."""
     q, k, v = _qkv(cfg, p, x, positions, policy)
     pos1d = positions[0] if positions.ndim == 2 else positions
     out = gqa_attention(q, k, v, q_positions=pos1d, k_positions=pos1d,
@@ -225,10 +229,13 @@ def attn_prefill(cfg: ArchConfig, p, x, positions, max_cache: int, *,
     n_keep = min(s, s_cache)
     slots = torch.arange(s - n_keep, s, device=x.device) % s_cache
     cache_dt = x.dtype                      # cache dtype == compute dtype
-    ck = torch.zeros((b, s_cache) + tuple(k.shape[2:]), dtype=cache_dt,
-                     device=x.device)
-    cv = torch.zeros((b, s_cache) + tuple(v.shape[2:]), dtype=cache_dt,
-                     device=x.device)
+    if into is None:
+        ck = torch.zeros((b, s_cache) + tuple(k.shape[2:]), dtype=cache_dt,
+                         device=x.device)
+        cv = torch.zeros((b, s_cache) + tuple(v.shape[2:]), dtype=cache_dt,
+                         device=x.device)
+    else:
+        ck, cv = into["k"].zero_(), into["v"].zero_()
     ck[:, slots] = k[:, s - n_keep:].to(cache_dt)
     cv[:, slots] = v[:, s - n_keep:].to(cache_dt)
     return y, {"k": ck, "v": cv}

@@ -95,11 +95,19 @@ def apply_block(cfg, kind, p, x, positions, policy=DEFAULT_POLICY):
     return x, aux, None
 
 
-def block_cache_defs(cfg, kind, batch: int, max_seq: int):
+def block_cache_defs(cfg, kind, batch: int, max_seq: int,
+                     dtype=torch.bfloat16):
     _check_kind(cfg, kind)
     if kind == "rglru":
-        return rg.rglru_state_defs(cfg, batch)
-    return att.kv_cache_defs(cfg, batch, max_seq)   # window-clipped inside
+        return rg.rglru_state_defs(cfg, batch, dtype)
+    return att.kv_cache_defs(cfg, batch, max_seq, dtype)  # window-clipped
+
+
+def _write_state(buffers, state):
+    """Copy an rglru block's new state into its cache buffers."""
+    for key, t in state.items():
+        buffers[key].copy_(t)
+    return buffers
 
 
 def decode_block(cfg, kind, p, x, cache, pos, policy=DEFAULT_POLICY):
@@ -108,9 +116,7 @@ def decode_block(cfg, kind, p, x, cache, pos, policy=DEFAULT_POLICY):
     _check_kind(cfg, kind)
     if kind == "rglru":
         x, state = rg.rglru_decode(cfg, p, x, cache, policy)
-        for key, t in state.items():
-            cache[key].copy_(t)
-        return x, cache
+        return x, _write_state(cache, state)
     h = apply_norm(cfg, p["ln1"], x, policy)
     a, cache = att.attn_decode(cfg, p["attn"], h, cache, pos, policy=policy)
     x = x + a
@@ -119,16 +125,18 @@ def decode_block(cfg, kind, p, x, cache, pos, policy=DEFAULT_POLICY):
 
 
 def prefill_block(cfg, kind, p, x, positions, max_cache: int,
-                  policy=DEFAULT_POLICY):
-    """Full-sequence block that also materializes its decode cache."""
+                  policy=DEFAULT_POLICY, into=None):
+    """Full-sequence block that also materializes its decode cache, into
+    the buffers ``into`` where given."""
     _check_kind(cfg, kind)
     if kind == "rglru":
         # the full apply already returns the carry state = decode cache
         x, _, cache = apply_block(cfg, kind, p, x, positions, policy)
-        return x, cache
+        return x, cache if into is None else _write_state(into, cache)
     h = apply_norm(cfg, p["ln1"], x, policy)
     a, cache = att.attn_prefill(cfg, p["attn"], h, positions, max_cache,
-                                window=_window(cfg, kind), policy=policy)
+                                window=_window(cfg, kind), policy=policy,
+                                into=into)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x, policy)
     return x + apply_mlp(cfg, p["mlp"], h, policy), cache
@@ -151,12 +159,20 @@ def lm_param_defs(cfg: ArchConfig, max_seq: int):
     return defs
 
 
-def lm_cache_defs(cfg: ArchConfig, batch: int, max_seq: int):
+def lm_cache_defs(cfg: ArchConfig, batch: int, max_seq: int,
+                  dtype=torch.bfloat16):
+    """The decode cache; ``dtype`` is the compute dtype it holds (k, v and
+    the rglru conv window; the rglru h is fp32), which the prefill's own
+    cache has."""
     prefix, unit, n_units, tail = stack_plan(cfg)
-    return {"prefix": [block_cache_defs(cfg, k, batch, max_seq) for k in prefix],
-            "units": stack_defs({f"b{i}": block_cache_defs(cfg, k, batch, max_seq)
-                                 for i, k in enumerate(unit)}, n_units),
-            "tail": [block_cache_defs(cfg, k, batch, max_seq) for k in tail]}
+
+    def one(k):
+        return block_cache_defs(cfg, k, batch, max_seq, dtype)
+
+    return {"prefix": [one(k) for k in prefix],
+            "units": stack_defs({f"b{i}": one(k) for i, k in enumerate(unit)},
+                                n_units),
+            "tail": [one(k) for k in tail]}
 
 
 # --------------------------------------------------------------------------
@@ -236,31 +252,46 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
 
 
 def lm_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
-               policy=DEFAULT_POLICY):
-    """Prompt pass.  Returns (last-token logits (B,V), cache)."""
+               policy=DEFAULT_POLICY, cache=None):
+    """Prompt pass.  Returns (last-token logits (B,V), cache).
+
+    With ``cache`` (buffers of ``lm_cache_defs(cfg, B, max_cache,
+    policy.compute)``'s tree and shapes) every block writes its cache into
+    them, through per-layer views of the stacked units, and that tree is
+    returned: nothing of the cache is allocated, so a captured prefill
+    writes where a captured decode reads.  The values are the same."""
     prefix, unit, n_units, tail = stack_plan(cfg)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed_in(cfg, params, tokens, extras, policy)
+    if cache is None:
+        out_prefix, out_units, out_tail = ([None] * len(prefix),
+                                           [{}] * n_units, [None] * len(tail))
+    else:
+        out_prefix, out_units, out_tail = (
+            cache["prefix"], _unstack(cache["units"], n_units), cache["tail"])
 
     pc = []
-    for k, p in zip(prefix, params["prefix"]):
-        x, cache = prefill_block(cfg, k, p, x, positions, max_cache, policy)
-        pc.append(cache)
+    for k, p, o in zip(prefix, params["prefix"], out_prefix):
+        x, c = prefill_block(cfg, k, p, x, positions, max_cache, policy, o)
+        pc.append(c)
     per_layer = []
-    for unit_p in _unstack(params["units"], n_units):
+    for unit_p, unit_o in zip(_unstack(params["units"], n_units), out_units):
         caches = {}
         for i, k in enumerate(unit):
-            x, caches[f"b{i}"] = prefill_block(cfg, k, unit_p[f"b{i}"], x,
-                                               positions, max_cache, policy)
+            x, caches[f"b{i}"] = prefill_block(
+                cfg, k, unit_p[f"b{i}"], x, positions, max_cache, policy,
+                unit_o.get(f"b{i}"))
         per_layer.append(caches)
     tc = []
-    for k, p in zip(tail, params["tail"]):
-        x, cache = prefill_block(cfg, k, p, x, positions, max_cache, policy)
-        tc.append(cache)
+    for k, p, o in zip(tail, params["tail"], out_tail):
+        x, c = prefill_block(cfg, k, p, x, positions, max_cache, policy, o)
+        tc.append(c)
 
     x = apply_norm(cfg, params["final"], x[:, -1:], policy)
     logits = lm_logits(cfg, params["embed"], x, policy)[:, 0]
+    if cache is not None:
+        return logits, cache
     return logits, {"prefix": pc, "units": _stack(per_layer), "tail": tc}
 
 

@@ -14,8 +14,8 @@ from repro_torch.models.params import param_count
 class ModelAPI:
     param_defs: Callable   # (cfg, max_seq) -> Pm tree
     forward: Callable      # (cfg, params, batch, policy, remat) -> (logits, aux)
-    cache_defs: Callable   # (cfg, batch, max_seq) -> Pm tree
-    prefill: Callable      # (cfg, params, tokens, extras, max_cache, policy) -> (logits, cache)
+    cache_defs: Callable   # (cfg, batch, max_seq, dtype=bf16) -> Pm tree
+    prefill: Callable      # (cfg, params, tokens, extras, max_cache, policy, cache=None) -> (logits, cache)
     decode: Callable       # (cfg, params, cache, token, pos, policy) -> (logits, cache)
 
 

@@ -117,11 +117,12 @@ def rglru_decode(cfg: ArchConfig, p, x, state, policy=DEFAULT_POLICY):
     return x, {"conv": new_conv, "h": h}
 
 
-def rglru_state_defs(cfg: ArchConfig, batch: int):
+def rglru_state_defs(cfg: ArchConfig, batch: int, dtype=torch.bfloat16):
+    """The carry: the conv window in the compute ``dtype``, h in fp32."""
     dr, cw = _dr(cfg), cfg.conv_width
     return {
         "conv": Pm((batch, cw - 1, dr), ("batch", None, "d_rnn"),
-                   init="zeros", dtype=torch.bfloat16),
+                   init="zeros", dtype=dtype),
         "h": Pm((batch, dr), ("batch", "d_rnn"), init="zeros",
                 dtype=torch.float32),
     }

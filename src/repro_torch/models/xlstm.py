@@ -2,7 +2,7 @@
 
 Only the depthwise causal conv is here, because the RG-LRU block uses it
 (``models/rglru.py``), as in the reference.  The mLSTM and sLSTM blocks
-wait for ROADMAP.md, Queue 1, item 3 (the other families).
+wait for ROADMAP.md, Queue 1, item 5 (the other families).
 """
 from __future__ import annotations
 

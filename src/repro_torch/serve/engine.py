@@ -3,9 +3,25 @@ decode with a KV cache, greedy sampling, on one device, and a
 checkpointable serving state (cache + positions + generated tokens): the
 service can be drained, snapshotted in the reference's checkpoint format,
 and restored by either package.
+
+The reference compiles its two programs, ``jax.jit(prefill)`` and
+``jax.jit(decode, donate_argnums=(1,))``.  Here one prefill and one decode
+step are written over static buffers the engine owns for each batch size
+(the cache at ``max_seq``, the generated tokens, ``pos``, the logits) and
+for each prompt shape (the prompt and ``extras``).  On the CPU ``generate``
+runs the steps eagerly.  On CUDA it captures each step once per key as a
+CUDA graph (prefill: B, P, the extras' shapes and dtypes, the policy and
+both backends; decode: B, the policy and the backends) and replays it; the
+graphs share one memory pool, since they never run at once, and their
+cache grows with the shapes served, as ``jax.jit``'s does.  A capture or
+a kernel that fails raises: nothing falls back to the eager steps on CUDA.
+
+A graph holds the addresses of the params and buffers it read: if
+``params`` is rebound, the graphs are dropped and captured again.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -15,9 +31,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels import ops
+from repro_torch.models.attention import get_attention_backend
 from repro_torch.models.layers import DEFAULT_POLICY, Policy
-from repro_torch.models.params import is_pm, tree_leaves, tree_map
+from repro_torch.models.params import is_pm, tree_map
 from repro_torch.models.registry import get_api
+from repro_torch.models.rglru import get_recurrence_backend
 
 
 @dataclass
@@ -26,6 +45,25 @@ class GenResult:
     prefill_s: float
     decode_s: float
     tokens_per_s: float
+
+
+@dataclass
+class _Batch:
+    """The buffers of one batch size.  ``seq`` holds each request's tokens
+    at their positions: the prefill writes the first at P, each decode
+    step reads the token at ``pos`` and writes the next at ``pos + 1``."""
+    cache: dict
+    seq: torch.Tensor               # (B, max_seq) int64
+    pos: torch.Tensor               # (B,) int64, advanced in place
+    logits: torch.Tensor            # (B, V), the last step's
+
+
+@dataclass
+class _Prompt:
+    """The inputs of one prefill shape."""
+    key: tuple                      # (B, P), the extras' shapes and dtypes
+    tokens: torch.Tensor            # (B, P) int64
+    extras: dict
 
 
 class ServeEngine:
@@ -41,68 +79,154 @@ class ServeEngine:
         self.cache = None
         self.pos = None
         self.generated: List[np.ndarray] = []
+        #: seconds spent capturing graphs, warm-ups included (0 on the CPU)
+        self.capture_s = 0.0
+        self._batches: dict = {}
+        self._prompts: dict = {}
+        self._graphs: dict = {}         # key -> ops.CountedGraph
+        self._graphed_params = None
+        self._pool = None
+        self._stream = None
 
     # ------------------------------------------------------------- generate
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, n_new: int,
                  extras: Optional[dict] = None) -> GenResult:
         """prompts (B, P) equal-length token batch; greedy decode n_new.
-        Both clocks are read only after the device has finished."""
+        Both clocks are read only after the device has finished; the first
+        request of a key also pays its captures, as the reference's first
+        call pays its compile."""
         b, p = prompts.shape
-        if p + n_new > self.max_seq:
-            raise ValueError(f"prompt {p} + {n_new} new tokens exceed "
-                             f"max_seq {self.max_seq}")
+        if n_new < 1 or p + n_new > self.max_seq:
+            raise ValueError(f"prompt {p} + {n_new} new tokens: need at "
+                             f"least 1 and at most max_seq {self.max_seq}")
         dev = self.device
         extras = {k: torch.as_tensor(np.asarray(x), device=dev)
                   for k, x in (extras or {}).items()}
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                  device=dev)
+        batch = self._batch(b)
+        prompt = self._prompt(tokens, extras)
         synchronize(dev)
         t0 = time.perf_counter()
-        logits, cache = self.api.prefill(self.cfg, self.params, tokens, extras,
-                                         self.max_seq, self.policy)
-        # pad prefill cache (built at prompt length) up to max_seq buffers
-        cache = self._pad_cache(cache, p)
-        tok = torch.argmax(logits, dim=-1)[:, None]
+        prefill, decode = self._programs(batch, prompt)
+        prefill()
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        pos = torch.full((b,), p, dtype=torch.long, device=dev)
-        out = [tok]
         for _ in range(n_new - 1):
-            logits, cache = self.api.decode(self.cfg, self.params, cache, tok,
-                                            pos, self.policy)
-            tok = torch.argmax(logits, dim=-1)[:, None]
-            pos = pos + 1
-            out.append(tok)
-        toks = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+            decode()
+        toks = batch.seq[:, p:p + n_new].cpu().numpy().astype(np.int32)
         synchronize(dev)
         t_decode = time.perf_counter() - t0
-        self.cache, self.pos = cache, pos + 1
+        self.cache, self.pos = batch.cache, batch.pos + 1
         self.generated.append(toks)
         return GenResult(tokens=toks, prefill_s=t_prefill, decode_s=t_decode,
                          tokens_per_s=b * max(n_new - 1, 1) / max(t_decode, 1e-9))
 
-    def _pad_cache(self, cache, p: int):
-        """Grow seq-dim buffers from prompt length to max_seq (zero fill).
-        Target defs are built with batch=1; dims of size 1 in the target
-        take the runtime batch, larger target dims are zero-padded."""
-        flat_t = tree_leaves(self.api.cache_defs(self.cfg, 1, self.max_seq),
-                             is_leaf=is_pm)
-        assert len(flat_t) == len(tree_leaves(cache)), len(flat_t)
-        targets = iter(flat_t)          # same sorted-key order as tree_map
+    # ---------------------------------------------------- buffers and steps
+    def _batch(self, b: int) -> _Batch:
+        if b not in self._batches:
+            dev, compute = self.device, self.policy.compute
+            defs = self.api.cache_defs(self.cfg, b, self.max_seq, compute)
+            self._batches[b] = _Batch(
+                cache=tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                                     device=dev),
+                               defs, is_leaf=is_pm),
+                seq=torch.zeros((b, self.max_seq), dtype=torch.long,
+                                device=dev),
+                pos=torch.zeros((b,), dtype=torch.long, device=dev),
+                logits=torch.zeros((b, self.cfg.vocab_size), dtype=compute,
+                                   device=dev))
+        return self._batches[b]
 
-        def pad(x):
-            tshape = [sx if st == 1 else max(sx, st)
-                      for sx, st in zip(x.shape, next(targets).shape)]
-            if list(x.shape) == tshape:
-                return x
-            y = x.new_zeros(tshape)
-            y[tuple(slice(0, s) for s in x.shape)] = x
-            return y
+    def _prompt(self, tokens, extras) -> _Prompt:
+        """The static inputs of this prefill shape, filled with this
+        request's."""
+        key = (tuple(tokens.shape), tuple(sorted(
+            (k, tuple(x.shape), x.dtype) for k, x in extras.items())))
+        if key not in self._prompts:
+            self._prompts[key] = _Prompt(
+                key, torch.empty_like(tokens),
+                {k: torch.empty_like(x) for k, x in extras.items()})
+        prompt = self._prompts[key]
+        prompt.tokens.copy_(tokens)
+        for k, x in extras.items():
+            prompt.extras[k].copy_(x)
+        return prompt
 
-        return tree_map(pad, cache)
+    def _prefill_step(self, batch: _Batch, prompt: _Prompt) -> None:
+        p = prompt.tokens.shape[1]
+        logits, _ = self.api.prefill(self.cfg, self.params, prompt.tokens,
+                                     prompt.extras, self.max_seq,
+                                     self.policy, cache=batch.cache)
+        batch.logits.copy_(logits)
+        batch.seq[:, p] = torch.argmax(logits, dim=-1)
+        batch.pos.fill_(p)
+
+    def _decode_step(self, batch: _Batch) -> None:
+        at = batch.pos[:, None]
+        logits, _ = self.api.decode(self.cfg, self.params, batch.cache,
+                                    batch.seq.gather(1, at), batch.pos,
+                                    self.policy)
+        batch.logits.copy_(logits)
+        batch.seq.scatter_(1, at + 1, torch.argmax(logits, dim=-1)[:, None])
+        batch.pos.add_(1)
+
+    # --------------------------------------------------------------- graphs
+    def _use_graphs(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _programs(self, batch: _Batch, prompt: _Prompt):
+        """(prefill, decode) callables: the eager steps on the CPU, the
+        replays of their graphs on CUDA (captured first where missing)."""
+        prefill = functools.partial(self._prefill_step, batch, prompt)
+        decode = functools.partial(self._decode_step, batch)
+        if not self._use_graphs():
+            return prefill, decode
+        if self._graphed_params is not self.params:
+            self._graphs.clear()
+            self._graphed_params = self.params
+        run = (self.policy, get_attention_backend(), get_recurrence_backend())
+        decode_key = ("decode", batch.seq.shape[0], *run)
+        prefill_key = ("prefill", prompt.key, *run)
+        if decode_key not in self._graphs:
+            # decode first: its warm-up step writes the cache, seq and pos,
+            # all of which the prefill then rewrites; pos 0 keeps its
+            # indices in range whatever the last request left there
+            batch.pos.zero_()
+            self._graphs[decode_key] = self._capture(decode)
+        if prefill_key not in self._graphs:         # prefill is idempotent
+            self._graphs[prefill_key] = self._capture(prefill)
+        return (self._graphs[prefill_key].replay,
+                self._graphs[decode_key].replay)
+
+    def _capture(self, step) -> ops.CountedGraph:
+        """One warm-up of ``step`` on a side stream (it builds and loads the
+        kernels, and sets up cuBLAS for that stream, before any capture),
+        then its capture on that stream into the shared pool.  The
+        warm-up's launches are set-up, not served work: they are taken back
+        off the counters, and each replay adds the captured ones."""
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        stream, current = self._stream, torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with ops.uncounted(), torch.cuda.stream(stream):
+            step()
+        current.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                step()
+
+        launches = ops.capture_launches(capture)
+        synchronize(self.device)
+        self.capture_s += time.perf_counter() - t0
+        return ops.CountedGraph(graph, launches)
 
     # ----------------------------------------------------------- checkpoint
     def snapshot_service(self, mgr, step: int) -> None:
@@ -111,7 +235,9 @@ class ServeEngine:
         reference does: ``{"cache", "pos", "generated"}``, ``pos`` as int32
         like the reference's.  ``pos`` is one past the next cache slot: the
         last generated token is not in the cache yet, so a continuation
-        feeds ``generated[:, -1]`` at ``pos - 1``."""
+        feeds ``generated[:, -1]`` at ``pos - 1``.  The cache is the
+        engine's buffers, read once the device has finished with them."""
+        synchronize(self.device)
         payload = {"cache": self.cache,
                    "pos": None if self.pos is None
                    else self.pos.to(torch.int32),

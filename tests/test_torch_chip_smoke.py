@@ -100,14 +100,14 @@ def smoke(monkeypatch):
                         lambda a, x, h0, counts=None: ref_rglru(a, x, h0))
     monkeypatch.setattr(qk, "quantize_int8", ref_quantize_int8)
     monkeypatch.setattr(qk, "dequantize_int8", ref_dequantize_int8)
-    main = serve.main
+    run = serve.run
 
-    def main_on_cpu(argv):
-        set_attention_backend("flash")      # what main() selects on CUDA
+    def run_on_cpu(argv):
+        set_attention_backend("flash")      # what run() selects on CUDA
         set_recurrence_backend("kernel")
-        return main(argv + ["--device", "cpu"])
+        return run(argv + ["--device", "cpu"])
 
-    monkeypatch.setattr(serve, "main", main_on_cpu)
+    monkeypatch.setattr(serve, "run", run_on_cpu)
     # one intra-op thread: the phases run thousands of tiny ops (training
     # most), and with the suite's other workers on the same cores, idle
     # OpenMP threads spinning at every op's barrier slowed this test from
@@ -193,6 +193,9 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     phase = {ln["phase"]: ln for ln in lines}
     # the smollm snapshot: k and v of the stacked cache, pos, generated
     assert phase["serve"]["snapshot"]["n_leaves"] == 4
+    for name in ("serve", "serve-hybrid"):
+        _check_graph_fields(phase[name])
+    assert phase["snapshot-hybrid"]["capture_s"] == 0.0
     ckpt = phase["checkpoint"]
     assert ckpt["leaves_equal"] and ckpt["resave"]["last_bytes_written"] == 0
     assert ckpt["resave"]["last_bytes_referenced"] == ckpt["param_bytes"]
@@ -213,6 +216,29 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     assert resume["train_state"]["leaves_equal"]
     assert resume["train_state"]["rng_dtype"] == "torch.uint32"
     _check_remote_phase(phase["checkpoint-remote"])
+
+
+def _check_graph_fields(line):
+    """A serve line's graph checks, as the CPU runs them: the eager steps
+    (no capture), a second request counting what the first did, both
+    requests bit-equal to their uncaptured runs, and a profile of one
+    decode step and one prefill both ways."""
+    assert line["capture_s"] == 0.0 and not line["recaptured"]
+    assert line["tokens_equal"] == line["logits_equal"] == [True, True]
+    assert line["logits_max_abs_diff"] == [0.0, 0.0]
+    second = line["second_request"]
+    assert second["launches"] == line["launches"]
+    assert second["prefill_s"] > 0 and second["decode_s"] > 0
+    assert second["decode_step_ms"] == pytest.approx(
+        second["decode_s"] / (line["new_tokens"] - 1) * 1e3)
+    assert line["uncaptured"]["prefill_s"] > 0
+    assert line["uncaptured"]["decode_step_ms"] > 0
+    profiles = line["profiles"]
+    assert set(profiles) == {"decode", "prefill"}
+    for ways in profiles.values():
+        assert set(ways) == {"uncaptured", "captured"}
+        assert all(w["wall_s"] > 0 and w["device_ops"] is None
+                   and w["top"] for w in ways.values())
 
 
 def _check_remote_phase(remote):

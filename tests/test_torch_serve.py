@@ -1,5 +1,7 @@
 """The port's ServeEngine and serving CLI on the CPU, against the JAX
 ServeEngine on the same weights and prompts."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,9 +17,13 @@ from repro.models.registry import get_api as j_get_api
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.configs import reduce_for_smoke as t_reduce_for_smoke
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ref_flash_attention
 from repro_torch.launch import serve as t_serve
+from repro_torch.models.attention import set_attention_backend
 from repro_torch.models.layers import Policy as TPolicy
-from repro_torch.models.params import params_from_numpy
+from repro_torch.models.params import (init_params, params_from_numpy,
+                                       tree_leaves)
 from repro_torch.models.registry import get_api as t_get_api
 from repro_torch.serve.engine import ServeEngine as TServeEngine
 
@@ -198,9 +204,10 @@ def test_hybrid_serve_engine_tokens_match_jax_fp32_greedy():
 
 
 def test_hybrid_pad_cache_leaves_state_and_window_unpadded():
-    """``_pad_cache`` grows only seq dims that fall short of max_seq: the
-    rglru conv (B, cw-1, d_rnn) and h (B, d_rnn) have none, and the
-    window-clipped kv is built at min(max_seq, window) by the prefill."""
+    """Nothing is padded: the engine's cache buffers have the shapes and
+    dtypes of the prefill's own cache, leaf for leaf.  The rglru conv
+    (B, cw-1, d_rnn) and h (B, d_rnn) have no seq dim, and the
+    window-clipped kv is built at min(max_seq, window)."""
     _, tc, _, tp = _hybrid_setup(40)
     eng = TServeEngine(tc, tp, max_seq=40, policy=T32, device="cpu")
     prompts = np.zeros((3, 20), np.int32)
@@ -216,9 +223,9 @@ def test_hybrid_pad_cache_leaves_state_and_window_unpadded():
     _, cache = t_get_api(tc).prefill(tc, eng.params,
                                      torch.from_numpy(prompts.astype(np.int64)),
                                      {}, 40, T32)
-    padded = eng._pad_cache(cache, 20)
-    assert padded["units"]["b2"]["k"] is cache["units"]["b2"]["k"]
-    assert padded["units"]["b0"]["conv"] is cache["units"]["b0"]["conv"]
+    assert [(t.shape, t.dtype) for t in tree_leaves(eng.cache)] == \
+        [(t.shape, t.dtype) for t in tree_leaves(cache)]
+    assert units["b0"]["conv"].dtype == torch.float32       # T32's compute
 
 
 def test_hybrid_serve_cli_runs_on_cpu(capsys):
@@ -269,3 +276,197 @@ def test_serve_engines_agree_under_default_policy(setup, prompt_len, max_seq):
     assert t_res.tokens.shape == j_res.tokens.shape == (2, 6)
     _agree_up_to_ties(t_res.tokens, j_res.tokens, prompts,
                       _fp32_forward_logits(tc, tp), 2 * bf16_err)
+
+
+# ------------------------------------- the engine's buffers, reused
+
+def _requests(setup):
+    """(B, P, n_new, seed) of three requests: two of one shape, then one of
+    another; the hybrid's first two decode across the 16-slot window."""
+    if setup is _setup:
+        return [(2, 8, 6, 1), (2, 8, 6, 2), (3, 12, 6, 3)]
+    return [(2, 10, 9, 1), (2, 10, 9, 2), (1, 20, 6, 3)]
+
+
+def _jax_fp32_greedy(jc, jp, prompts, n_new, max_seq):
+    """Greedy tokens of the JAX model's own fp32 prefill and decode: what
+    the JAX engine runs once it passes its policy on (ROADMAP.md, Queue 3),
+    as test_hybrid_serve_engine_tokens_match_jax_fp32_greedy runs it."""
+    japi, j32 = j_get_api(jc), JPolicy(compute=jnp.float32)
+    prefill = jax.jit(lambda p, t: japi.prefill(jc, p, t, {}, max_seq, j32))
+    decode = jax.jit(lambda p, c, t, pos: japi.decode(jc, p, c, t, pos, j32))
+    logits, cache = prefill(jp, jnp.asarray(prompts))
+    tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+    out = [tok]
+    for t in range(prompts.shape[1], prompts.shape[1] + n_new - 1):
+        logits, cache = decode(jp, cache, tok,
+                               jnp.full((len(prompts),), t, jnp.int32))
+        tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+        out.append(tok)
+    return np.asarray(jnp.concatenate(out, axis=1))
+
+
+@pytest.mark.parametrize("setup,max_seq", [(_setup, 48), (_hybrid_setup, 40)],
+                         ids=["smollm-135m", "recurrentgemma-9b"])
+def test_engine_reuses_its_buffers_across_requests(setup, max_seq):
+    """One engine serves two requests of one (B, P) and then one of
+    another.  The second writes the first's buffers again (the cache
+    leaves are the same tensors), and each request's tokens equal those of
+    a fresh engine bit for bit (the engine before its buffers: nothing
+    leaks from one request into the next) and the JAX package's fp32
+    greedy tokens up to fp32 near ties."""
+    jc, tc, jp, tp = setup(max_seq)
+    eng = TServeEngine(tc, tp, max_seq=max_seq, policy=T32, device="cpu")
+    leaves = []
+    for b, p, n_new, seed in _requests(setup):
+        prompts = np.random.default_rng(seed).integers(
+            0, jc.vocab_size, (b, p)).astype(np.int32)
+        res = eng.generate(prompts, n_new)
+        leaves.append(tree_leaves(eng.cache))
+        fresh = TServeEngine(tc, tp, max_seq=max_seq, policy=T32,
+                             device="cpu").generate(prompts, n_new)
+        assert res.tokens.shape == (b, n_new)
+        assert np.array_equal(res.tokens, fresh.tokens)
+        assert eng.pos.tolist() == [p + n_new] * b
+        _agree_up_to_ties(res.tokens,
+                          _jax_fp32_greedy(jc, jp, prompts, n_new, max_seq),
+                          prompts, _fp32_forward_logits(tc, tp))
+    assert all(x is y for x, y in zip(leaves[0], leaves[1]))
+    assert not any(x is y for x, y in zip(leaves[1], leaves[2]))
+    assert set(eng._batches) == {b for b, *_ in _requests(setup)}
+
+
+def _raw(x):
+    """(dtype, shape, bytes) of a tensor or an array: bit-identity."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        return (str(x.dtype).removeprefix("torch."), tuple(x.shape),
+                t.numpy().tobytes())
+    a = np.asarray(x)
+    return (a.dtype.name, a.shape, a.tobytes())
+
+
+@pytest.mark.parametrize("setup,max_seq", [(_setup, 48), (_hybrid_setup, 40)],
+                         ids=["smollm-135m", "recurrentgemma-9b"])
+def test_snapshot_of_a_reused_engine_restores_in_jax(tmp_path, setup,
+                                                     max_seq):
+    """The serving snapshot after the second request of one shape (the
+    buffers written twice) restores in the JAX package leaf for leaf, bit
+    for bit, as test_torch_checkpoint.py::test_serving_snapshot_crosses_packages
+    holds a single request's; ``generated`` holds both requests."""
+    from repro.checkpoint import serialization as jser
+    from repro.checkpoint.chunkstore import ChunkStore as JChunkStore
+    from repro.checkpoint.manager import CheckpointManager as JManager
+    from repro_torch.checkpoint import serialization as tser
+    from repro_torch.checkpoint.manager import CheckpointManager as TManager
+    _, tc, _, tp = setup(max_seq)
+    eng = TServeEngine(tc, tp, max_seq=max_seq, device="cpu")
+    for b, p, n_new, seed in _requests(setup)[:2]:
+        eng.generate(np.random.default_rng(seed).integers(
+            0, tc.vocab_size, (b, p)).astype(np.int32), n_new)
+    eng.snapshot_service(TManager(tmp_path), 2)
+    payload = {"cache": eng.cache, "pos": eng.pos.to(torch.int32),
+               "generated": np.concatenate(eng.generated, axis=1)}
+    want = {k: _raw(v) for k, v in tser._leaf_paths(payload)}
+    assert want["generated"][1] == (b, 2 * n_new)
+    jmgr = JManager(tmp_path)
+    jmgr.store = JChunkStore(tmp_path / "chunks")   # as _jmgr, every leg
+    restored, meta = jmgr.restore(jax.tree.map(lambda _: 0, payload))
+    assert meta["kind"] == "serve"
+    assert {k: _raw(v) for k, v in jser._leaf_paths(restored)} == want
+
+
+# ------------------------------------------ replay accounting, no card
+
+class _FakeGraph:
+    """Stands in for a captured CUDA graph: ``replay`` runs the step it
+    was captured from.  The launches that run counts are not the graph's:
+    ``CountedGraph`` adds those."""
+
+    def __init__(self, step):
+        self.step, self.replays = step, 0
+
+    def replay(self):
+        self.replays += 1
+        with ops.uncounted():
+            self.step()
+
+
+def _bump(**launches):
+    for name, n in launches.items():
+        setattr(ops, name, getattr(ops, name) + n)
+
+
+def test_counted_graph_adds_its_captured_launches_on_every_replay():
+    """A capture's launches come back as the graph's and leave the counters
+    as they were (a capture runs nothing); launches inside ``uncounted``
+    (a warm-up) are taken back off; each replay adds the graph's."""
+    ops.reset_launch_counts()
+    _bump(FLASH_LAUNCHES=5)
+    with ops.uncounted():
+        _bump(FLASH_LAUNCHES=2, RGLRU_LAUNCHES=1)
+    launches = ops.capture_launches(
+        lambda: _bump(FLASH_LAUNCHES=3, RGLRU_LAUNCHES=2))
+    assert launches == {"FLASH_LAUNCHES": 3, "RGLRU_LAUNCHES": 2}
+    assert (ops.FLASH_LAUNCHES, ops.RGLRU_LAUNCHES) == (5, 0)
+    graph = _FakeGraph(lambda: _bump(FLASH_LAUNCHES=100))
+    counted = ops.CountedGraph(graph, launches)
+    for _ in range(4):
+        counted.replay()
+    assert graph.replays == 4
+    assert (ops.FLASH_LAUNCHES, ops.RGLRU_LAUNCHES) == (5 + 12, 8)
+    assert (ops.QUANT_LAUNCHES, ops.DEQUANT_LAUNCHES) == (0, 0)
+    ops.reset_launch_counts()
+
+
+def test_graphed_engine_counts_each_request_through_replays(monkeypatch):
+    """The engine's graph path on the CPU, with a fake graph in place of
+    the CUDA one: a request counts the flash launches its prefill graph
+    holds, one a layer, through the replay (the warm-up and the capture
+    count nothing); a second request of the same key captures nothing and
+    counts the same; the chunked backend is another key (no flash);
+    rebinding ``params`` drops every graph; and the tokens are the eager
+    engine's."""
+    captures = []
+
+    def fake_capture(step):
+        with ops.uncounted():
+            step()                                  # the warm-up
+        captures.append(step.func.__name__)
+        return ops.CountedGraph(_FakeGraph(step),
+                                ops.capture_launches(step))
+
+    def flash(q, k, v, causal=True, window=0):
+        _bump(FLASH_LAUNCHES=1)
+        return ref_flash_attention(q, k, v, causal=causal, window=window)
+
+    monkeypatch.setattr(ops, "flash_attention", flash)
+    cfg = dataclasses.replace(t_reduce_for_smoke(T_ARCHS["smollm-135m"]),
+                              head_dim=64)        # prefill takes flash
+    params = init_params(t_get_api(cfg).param_defs(cfg, 136),
+                         torch.Generator().manual_seed(0), "cpu")
+    eng = TServeEngine(cfg, params, max_seq=136, policy=T32, device="cpu")
+    monkeypatch.setattr(eng, "_use_graphs", lambda: True)
+    monkeypatch.setattr(eng, "_capture", fake_capture)
+    eager = TServeEngine(cfg, params, max_seq=136, policy=T32, device="cpu")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    counts = []
+    try:
+        for backend in ("flash", "flash", "chunked", "chunked"):
+            if len(counts) == 3:
+                eng.params = dict(eng.params)       # the same tensors
+            set_attention_backend(backend)
+            ops.reset_launch_counts()
+            res = eng.generate(prompts, 4)
+            counts.append((ops.FLASH_LAUNCHES, len(captures)))
+            assert np.array_equal(res.tokens,
+                                  eager.generate(prompts, 4).tokens)
+    finally:
+        set_attention_backend("chunked")
+        ops.reset_launch_counts()
+    n = cfg.n_layers
+    assert counts == [(n, 2), (n, 2), (0, 4), (0, 6)]
+    assert captures == ["_decode_step", "_prefill_step"] * 3
+    assert eng.capture_s == 0.0
