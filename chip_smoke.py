@@ -61,6 +61,26 @@ one JSON line each; any failure exits non-zero:
                  decode steps on the live engine, and 8 from the snapshot
                  restored onto the card: restored leaves bit-equal to the
                  host copy taken at snapshot time, equal tokens
+  serve-parity-moe
+                 full-width qwen2-moe-a2.7b (seeded random weights), fp32,
+                 B=1, prompt 512 (two MoE groups): 24 flash launches; flash
+                 vs chunked block by block over all 24 blocks, an MoE
+                 block's difference over the tokens routed alike on both
+                 paths, each token whose expert set differs reported with
+                 its top-k margin (a near tie below ROUTE_TIE, or the phase
+                 fails); logits and greedy tokens end to end at a 2-layer
+                 cut
+  serve-moe      the repro_torch.launch.serve path, qwen2-moe-a2.7b at full
+                 width, bf16, B=4, prompt 512, 32 new tokens: 24 flash
+                 launches a request, the graph checks of serve, the decode
+                 step beside its weight-read bound, peak memory
+  serve-mla      deepseek-v2-lite-16b the same way: 0 flash launches (MLA's
+                 q head dim 192 is not v's 128), the serving snapshot (a
+                 dense MLA prefix block, 26 MoE blocks) validates, the
+                 absorbed MLA decode against the expanded forward on every
+                 one of the 27 layers' weights in fp32 (at PARITY_TOL of
+                 the output's scale, beside the fp32 noise floor), and the
+                 compressed cache's bytes beside an expanded K/V cache's
   train          the repro_torch.train.loop.train path, smollm-135m at full
                  width, bf16, the flash backend, remat on, B=8, seq 2048, 10
                  steps: the other main path; 60 flash launches a step (the
@@ -90,8 +110,9 @@ one JSON line each; any failure exits non-zero:
                  from each leg's restore, equal losses; then the 9B
                  serving snapshot through three servers, equal tokens
   timing         every kernel at the shapes its paths give it (flash also
-                 in fp32 at the serve-parity shapes, the RG-LRU scan at both
-                 hybrid shapes and with bf16 inputs) against its plain
+                 at qwen2-moe's, and in fp32 at the serve-parity shapes,
+                 the RG-LRU scan at both hybrid shapes and with bf16
+                 inputs) against its plain
                  version, a PyTorch call where one computes the same
                  function (for flash: which SDPA backend ran, and its time
                  when only the memory-efficient backend may run), and the
@@ -104,6 +125,7 @@ nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -129,6 +151,17 @@ SNAPSHOT_CONTINUE = 8                              # decode steps after one
 # recurrentgemma-9b prefill at B=2: 32 query heads over 2 kv heads, hd 256
 HYBRID_FLASH_SHAPE = dict(b=2, h=16, kv=1, s=2560, hd=256, window=2048)
 RGLRU_SHAPE = (2, 2560, 4096)                      # its rglru prefill, B=2
+MOE = "qwen2-moe-a2.7b"                            # served at full width
+MLA = "deepseek-v2-lite-16b"                       # served at full width
+MOE_CUT_LAYERS = 2                                 # serve-parity-moe's cut
+MOE_PARITY_PROMPT = 512                            # two MoE groups of 256
+MOE_SERVE = dict(batch=4, prompt=512, new_tokens=32)
+# qwen2-moe-a2.7b prefill at B=4: 16 heads over 16 kv heads (g = 1), hd 128
+MOE_FLASH_SHAPE = dict(b=4, h=16, kv=16, s=512, hd=128)
+# a token whose expert set differs between two paths that agree to ~1e-6
+# is a near tie when its k-th and (k+1)-th router probs are this close
+# (fp32 paths move the probs by ~1e-9; adjacent probs lie ~1e-4 apart)
+ROUTE_TIE = 1e-5
 QUANT_N = 4096 * 12288                             # one of its MLP matrices
 QUANT_BLOCK = 256
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM data sheet
@@ -413,22 +446,19 @@ def _check_flash(gen):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ref_flash_attention
-    hy = HYBRID_FLASH_SHAPE
+    # each path's shape, causal, with its window (flash_paths)
+    path_cases = {path: (dt, b * h, b * kv, s, s, hd, True, window, 1)
+                  for path, (b, h, kv, s, hd, window, dt)
+                  in flash_paths().items()}
     cases = [(dt,) + c + (1,) for dt in ("float32", "bfloat16") for c in SWEEP]
-    cases += [("float32", 2, 2, 384, 384, 64, True, 0, 1),  # test_kernels.py:41
-              ("bfloat16", 36, 12, 128, 128, 64, True, 0, 1),  # serve, B=4
-              ("float32", 18, 6, 128, 128, 64, True, 0, 1),  # serve-parity
-              ("bfloat16", hy["b"] * hy["h"], hy["b"] * hy["kv"], hy["s"],
-               hy["s"], hy["hd"], True, hy["window"], 1),   # serve-hybrid
-              ("float32", hy["h"], hy["kv"], HYBRID_PARITY_PROMPT,
-               HYBRID_PARITY_PROMPT, hy["hd"], True, hy["window"], 1)]
-    b, h, kv, s, hd, _, _ = flash_paths()["train"]
-    cases += [("bfloat16", b * h, b * kv, s, s, hd, True, 0, 1)]   # train
+    cases += [("float32", 2, 2, 384, 384, 64, True, 0, 1)]  # test_kernels.py:41
+    cases += list(path_cases.values())
     cases += [("bfloat16",) + c for c in FLASH_BF16_CASES]
     cases += [("float32",) + c for c in FLASH_FP32_CASES]
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    bad, at_path = _check_flash_tiles(), {}
-    for dt, bh, bkv, sq, sk, hd, causal, window, mag in cases:
+    bad, errs = _check_flash_tiles(), {}
+    for case in cases:
+        dt, bh, bkv, sq, sk, hd, causal, window, mag = case
         dtype = getattr(torch, dt)
         q, k = flash_qk(gen, dt, bh, bkv, sq, sk, hd, mag)
         v = _randn(gen, bkv, sk, hd, dtype=dtype)
@@ -436,19 +466,11 @@ def _check_flash(gen):
         ref = ref_flash_attention(q, k, v, causal=causal, window=window)
         err = float((out.float() - ref.float()).abs().max())
         worst[dt] = max(worst[dt], err)
+        errs[case] = err
         if not err <= TOL[dt]:
             bad.append(["flash", dt, bh, bkv, sq, sk, hd, causal, window, mag,
                         err])
-        if dt == "bfloat16" and (bh, sq) == (36, 128):
-            at_path["serve"] = err
-        if dt == "bfloat16" and window == hy["window"] and mag == 1:
-            at_path["serve-hybrid"] = err
-        if dt == "float32" and (bh, sq) == (18, 128):
-            at_path["serve-parity"] = err
-        if dt == "float32" and window == hy["window"]:
-            at_path["serve-parity-hybrid"] = err
-        if (dt, bh, sq, mag) == ("bfloat16", b * h, s, 1) and not window:
-            at_path["train"] = err
+    at_path = {path: errs[case] for path, case in path_cases.items()}
     q = _randn(gen, 2, 128, 64)
     k = _randn(gen, 2, 128, 64)
     v = torch.full((2, 128, 64), 2.5, device=DEV)
@@ -613,32 +635,83 @@ def _train_backend(flash: bool) -> None:
     att.set_attention_backend("flash" if flash else "chunked")
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Within it, every ``moe.route`` call's result is appended to the
+    list it yields: the routing each MoE block chose."""
+    from repro_torch.models import moe
+    route, seen = moe.route, []
+
+    def record(*args, **kwargs):
+        seen.append(route(*args, **kwargs))
+        return seen[-1]
+
+    moe.route = record
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def routing_moved(a, b, top_k):
+    """Two routings of the same tokens (``moe.route`` results): which
+    tokens (B, S) chose another expert set, which kept another set of
+    experts within capacity (an earlier flip in the group moves positions),
+    and at each token whose set changed, the k-th minus the (k+1)-th
+    router prob of ``b``."""
+    import torch
+    sets = (torch.sort(a["expert_idx"], dim=-1).values
+            != torch.sort(b["expert_idx"], dim=-1).values).any(-1)
+    kept = (a["keep"] != b["keep"]).any(-1)
+    top = torch.topk(b["probs"], top_k + 1, dim=-1).values
+    margin = top[..., top_k - 1] - top[..., top_k]
+    n = sets.shape[0]
+    return (sets.reshape(n, -1), (sets | kept).reshape(n, -1),
+            margin[sets].tolist())
+
+
 def _block_diffs(cfg, params, tokens, max_seq, policy):
     """Every block of the stack, each from the same input, through the
-    kernel path and the plain path; the plain output feeds the next."""
+    kernel path and the plain path; the plain output feeds the next.  An
+    MoE block's difference is taken over the tokens whose routing is the
+    same on both paths; each token whose expert set differs is reported
+    with its top-k margin (a near tie is below ROUTE_TIE)."""
     import torch
     from repro_torch.models import model as lm
     prefix, unit, n_units, tail = lm.stack_plan(cfg)
-    blocks = ([(k, unit_p[f"b{i}"])
-               for unit_p in lm._unstack(params["units"], n_units)
-               for i, k in enumerate(unit)]
+    blocks = (list(zip(prefix, params["prefix"]))
+              + [(k, unit_p[f"b{i}"])
+                 for unit_p in lm._unstack(params["units"], n_units)
+                 for i, k in enumerate(unit)]
               + list(zip(tail, params["tail"])))
     b, p = tokens.shape
     positions = torch.arange(p, device=tokens.device)[None].expand(b, p)
     x = lm._embed_in(cfg, params, tokens, {}, policy)
-    diffs = {}
+    diffs, flips = {}, []
     for kind, bp in blocks:
-        y = {}
+        y, routes = {}, {}
         for kernels in (True, False):
             _backends(kernels)
-            y[kernels], _ = lm.prefill_block(cfg, kind, bp, x, positions,
-                                             max_seq, policy)
+            with recorded_routes() as routes[kernels]:
+                y[kernels], _ = lm.prefill_block(cfg, kind, bp, x, positions,
+                                                 max_seq, policy)
         _backends(False)
-        diffs.setdefault(kind, []).append(
-            float((y[True] - y[False]).abs().max()))
+        gap = (y[True] - y[False]).abs().amax(-1)               # (B, S)
+        if routes[False]:
+            sets, moved, margins = routing_moved(
+                routes[True][0], routes[False][0], cfg.moe.top_k)
+            flips.append({"tokens": int(sets.sum()),
+                          "routing_moved": int(moved.sum()),
+                          "margins": margins})
+            gap = gap[~moved]
+        diffs.setdefault(kind, []).append(float(gap.max()) if gap.numel()
+                                          else 0.0)
         x = y[False]
-    return {"blocks": {kind: len(d) for kind, d in diffs.items()},
-            "block_max_abs_diff": {kind: max(d) for kind, d in diffs.items()}}
+    out = {"blocks": {kind: len(d) for kind, d in diffs.items()},
+           "block_max_abs_diff": {kind: max(d) for kind, d in diffs.items()}}
+    if flips:
+        out["routing_flips"] = flips
+    return out
 
 
 def _parity(arch, b, p, n_new, cut_layers):
@@ -717,16 +790,29 @@ def _parity(arch, b, p, n_new, cut_layers):
             _backends(kernels)
             gen[kernels] = eng.generate(prompts, n_new).tokens
         _backends(False)
-        seq = torch.as_tensor(np.concatenate([prompts, gen[True]], axis=1),
-                              dtype=torch.long, device=DEV)
-        logits = lm.lm_forward(cfg_cut, params_cut, {"tokens": seq}, fp32)[0]
+        # fp32 teacher-forced logits of the kernel path's tokens, through
+        # the plain prefill and decode (an MoE forward takes no length its
+        # groups do not divide, such as P + n_new)
+        lg, cache = lm.lm_prefill(cfg_cut, params_cut, tokens, {}, max_seq,
+                                  fp32)
+        steps = [lg]
+        for t in range(n_new - 1):
+            tok = torch.as_tensor(gen[True][:, t:t + 1], dtype=torch.long,
+                                  device=DEV)
+            lg, cache = lm.lm_decode(cfg_cut, params_cut, cache, tok,
+                                     torch.full((b,), p + t, device=DEV), fp32)
+            steps.append(lg)
+        logits = torch.stack(steps, dim=1)              # (B, n_new, V)
         flips, bad = _greedy_flips(gen[True], gen[False],
-                                   logits[:, p - 1:].float().cpu().numpy(), 1)
+                                   logits.float().cpu().numpy(), 1)
     out["cut_tie_flips"], out["cut_bad_flips"] = flips, bad
     out["cut_tokens_kernels"] = gen[True].tolist()
+    route_margins = [m for f in out.get("routing_flips", [])
+                     for m in f["margins"]]
     ok = (out["logits_finite"]
           and max(out["block_max_abs_diff"].values()) <= PARITY_TOL
-          and out["cut_logits_diff"] <= PARITY_TOL and not bad)
+          and out["cut_logits_diff"] <= PARITY_TOL and not bad
+          and all(m < ROUTE_TIE for m in route_margins))
     return ok, cfg, out
 
 
@@ -1137,6 +1223,178 @@ def phase_snapshot_hybrid(card_line):
          leaves_equal=equal, tokens_equal=bool(torch.equal(live, cont)),
          continuation_tokens=live.tolist(), logits_max_abs_diff=logits_diff,
          peak_bytes=peak_bytes())
+
+
+# ------------------------------------------------------------------ moe
+
+def phase_serve_parity_moe(card_line):
+    """qwen2-moe-a2.7b at full width, fp32: flash against chunked attention
+    block by block over all 24 blocks (an MoE block's difference over the
+    tokens routed alike on both paths, each routing flip with its top-k
+    margin), and end to end at a 2-layer cut."""
+    free_and_reset_peak()
+    ok, cfg, out = _parity(MOE, 1, MOE_PARITY_PROMPT, 8, MOE_CUT_LAYERS)
+    want = {"flash": cfg.n_layers, "rglru": 0}
+    ok = ok and out["prefill_launches"] == want
+    flips = out["routing_flips"]
+    emit("serve-parity-moe", ok, card_line, arch=MOE, dtype="float32",
+         batch=1, prompt=MOE_PARITY_PROMPT, new_tokens=8,
+         cut_layers=MOE_CUT_LAYERS, tolerance=PARITY_TOL, route_tie=ROUTE_TIE,
+         expected_launches=want,
+         routing_flip_tokens=sum(f["tokens"] for f in flips),
+         routing_moved_tokens=sum(f["routing_moved"] for f in flips),
+         peak_bytes=peak_bytes(), **out)
+
+
+def decode_bound(eng) -> dict:
+    """A decode step reads every weight but the input embedding (of which
+    it gathers B rows); at S = 1 the MoE products run every expert.  Its
+    bound is those bytes at the card's memory rate."""
+    from repro_torch.models.params import tree_leaves
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(eng.params))
+    emb = eng.params["embed"]["embedding"]
+    n_bytes -= emb.numel() * emb.element_size()
+    return {"weight_bytes": n_bytes,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _serve_cell(arch, flash_launches, snapshot_dir=None):
+    """One MoE serve cell: the CLI's round at MOE_SERVE, then the graph
+    checks of ``serve``; the decode step beside its weight-read bound."""
+    from repro_torch.configs import get_arch
+    ms = MOE_SERVE
+    row, counts, eng = _serve(arch, ms["batch"], ms["prompt"],
+                              ms["new_tokens"], snapshot_dir)
+    peak = peak_bytes()
+    want = {"flash_attention_fwd": flash_launches, "rglru_scan": 0,
+            "quantize_int8": 0, "dequantize_int8": 0}
+    checks = _graph_checks(eng, ms["batch"], ms["prompt"], ms["new_tokens"])
+    bound = decode_bound(eng)
+    step_ms = checks["second_request"]["decode_step_ms"]
+    ok = (counts == want and row["flash_launches"] == flash_launches
+          and _graphs_ok(checks, counts, want)
+          and row["prefill_s"] > 0 and row["decode_s"] > 0)
+    fields = dict(arch=arch, batch=ms["batch"], prompt_len=ms["prompt"],
+                  new_tokens=ms["new_tokens"], dtype="bfloat16",
+                  n_params=get_arch(arch).n_params(),
+                  prefill_s=row["prefill_s"], decode_s=row["decode_s"],
+                  tok_per_s=row["tok_per_s"], launches=counts,
+                  expected_launches=want, peak_bytes=peak,
+                  decode_bound={**bound, "share_of_bound":
+                                bound["bound_ms"] / step_ms},
+                  **checks)
+    return ok, eng, fields, counts
+
+
+def phase_serve_moe(card_line):
+    """The repro_torch.launch.serve path, qwen2-moe-a2.7b at full width:
+    24 flash launches a request, one a layer."""
+    from repro_torch.configs import get_arch
+    free_and_reset_peak()
+    ok, eng, fields, counts = _serve_cell(MOE, get_arch(MOE).n_layers)
+    del eng
+    free()
+    emit("serve-moe", ok, card_line, **fields)
+    return counts
+
+
+def mla_absorbed_vs_expanded(eng, b=2):
+    """Each layer's MLA weights (the engine's, in fp32): the absorbed
+    decode at position S-1, after a prefill over S-1 tokens, against the
+    expanded forward's last row, on unit-RMS inputs (what the block's
+    norm hands it), S the serving prompt.
+
+    The reference's fan_in (shape[-2], the 16 heads, for wq) makes these
+    scores large (std ~52 at S = 512; the top prob of a row ~0.99996), so
+    the last row's outputs reach |y| ~ 100 and move by ~5e-4 when the
+    input moves by 1e-7 relative: fp32 alone is that far from itself.
+    Each layer's difference is therefore held at PARITY_TOL of its output
+    scale (max |y|, at least 1), and reported beside that noise floor."""
+    import torch
+    from repro_torch.models import attention as att
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import Policy
+    from repro_torch.models.params import tree_map
+    fp32 = Policy(compute=torch.float32)
+    cfg, s = eng.cfg, MOE_SERVE["prompt"]
+    _, unit, n_units, _ = lm.stack_plan(cfg)
+    layers = ([p["attn"] for p in eng.params["prefix"]]
+              + [u[f"b{i}"]["attn"]
+                 for u in lm._unstack(eng.params["units"], n_units)
+                 for i in range(len(unit))])
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV)
+    pos = torch.arange(s, device=DEV)
+    rows = {"max_abs_diff": [], "output_scale": [], "noise_floor": []}
+    with torch.inference_mode():
+        for p in layers:
+            p32 = tree_map(lambda t: t.float(), p)
+            full = att.mla_forward(cfg, p32, x, pos, policy=fp32)[:, -1]
+            moved = att.mla_forward(cfg, p32, x * (1 + 1e-7), pos,
+                                    policy=fp32)[:, -1]
+            _, cache = att.mla_prefill(cfg, p32, x[:, :s - 1], pos[:s - 1], s,
+                                       policy=fp32)
+            y, _ = att.mla_decode(cfg, p32, x[:, s - 1:], cache,
+                                  torch.full((b,), s - 1, device=DEV),
+                                  policy=fp32)
+            rows["max_abs_diff"].append(float((y[:, 0] - full).abs().max()))
+            rows["output_scale"].append(float(full.abs().max()))
+            rows["noise_floor"].append(float((moved - full).abs().max()))
+    rel = [d / max(1.0, sc) for d, sc in zip(rows["max_abs_diff"],
+                                             rows["output_scale"])]
+    return {"layers": len(rel), "batch": b, "seq": s,
+            "max_abs_diff": max(rows["max_abs_diff"]),
+            "max_diff_over_scale": max(rel),
+            "max_noise_floor": max(rows["noise_floor"]),
+            "per_layer": rows}
+
+
+def mla_cache_bytes(eng, b) -> dict:
+    """The engine's compressed cache (c_kv and k_rope a layer) beside an
+    expanded K/V cache of the same length and dtype (k and v of every
+    head)."""
+    from repro_torch.models.params import tree_leaves
+    cfg, m = eng.cfg, eng.cfg.mla
+    leaves = tree_leaves(eng._batches[b].cache)
+    compressed = sum(t.numel() * t.element_size() for t in leaves)
+    expanded = (cfg.n_layers * b * eng.max_seq * cfg.n_heads
+                * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim)
+                * leaves[0].element_size())
+    return {"compressed_bytes": compressed, "expanded_bytes": expanded,
+            "ratio": expanded / compressed}
+
+
+def phase_serve_mla(card_line):
+    """The repro_torch.launch.serve path, deepseek-v2-lite-16b at full
+    width: MLA's q head dim 192 is not v's 128, so no flash launch; the
+    serving snapshot (a dense MLA prefix block, then 26 MoE blocks)
+    validates; the absorbed decode against the expanded path on every
+    layer's weights (``mla_absorbed_vs_expanded``); the compressed
+    cache's bytes."""
+    from repro_torch.checkpoint import serialization as ser
+    from repro_torch.checkpoint.resharding import plan_summary
+    free_and_reset_peak()
+    ms = MOE_SERVE
+    with tempfile.TemporaryDirectory() as snap:
+        ok, eng, fields, counts = _serve_cell(MLA, 0, snap)
+        step = Path(snap) / "step_0000000000"
+        valid = ser.validate(step, deep=True)
+        plan = plan_summary(step)
+    want_leaves = _payload_leaves(MLA, ms["batch"],
+                                  ms["prompt"] + ms["new_tokens"] + 8)
+    absorbed = mla_absorbed_vs_expanded(eng)
+    cache = mla_cache_bytes(eng, ms["batch"])
+    del eng
+    free()
+    ok = (ok and valid and plan["n_leaves"] == want_leaves
+          and absorbed["max_diff_over_scale"] <= PARITY_TOL)
+    emit("serve-mla", ok, card_line, **fields, tolerance=PARITY_TOL,
+         absorbed_vs_expanded=absorbed, cache=cache,
+         snapshot={"valid": valid, "n_leaves": plan["n_leaves"],
+                   "expected_leaves": want_leaves,
+                   "approx_bytes": plan["approx_bytes"]})
+    return counts
 
 
 # ------------------------------------------------------------- training
@@ -1959,9 +2217,13 @@ def _time_quant(gen, dequant):
 def flash_paths() -> dict:
     """The flash kernel's shape on each path, (b, h, kv, s, hd, window,
     dtype): bf16 on the serving paths, fp32 on the serve-parity paths."""
-    hy, sm = HYBRID_FLASH_SHAPE, SLICE_SHAPE
+    hy, sm, mo = HYBRID_FLASH_SHAPE, SLICE_SHAPE, MOE_FLASH_SHAPE
     return {"serve": (sm["b"], sm["h"], sm["kv"], sm["s"], sm["hd"], 0,
                       "bfloat16"),
+            "serve-moe": (mo["b"], mo["h"], mo["kv"], mo["s"], mo["hd"], 0,
+                          "bfloat16"),
+            "serve-parity-moe": (1, mo["h"], mo["kv"], MOE_PARITY_PROMPT,
+                                 mo["hd"], 0, "float32"),
             "serve-hybrid": (hy["b"], hy["h"], hy["kv"], hy["s"], hy["hd"],
                              hy["window"], "bfloat16"),
             "serve-parity": (2, sm["h"], sm["kv"], 128, sm["hd"], 0,
@@ -2110,6 +2372,9 @@ def main() -> int:
         run("serve-parity-hybrid", phase_serve_parity_hybrid)
         counts["serve-hybrid"] = run("serve-hybrid", phase_serve_hybrid)
         run("snapshot-hybrid", phase_snapshot_hybrid)
+        run("serve-parity-moe", phase_serve_parity_moe)
+        counts["serve-moe"] = run("serve-moe", phase_serve_moe)
+        counts["serve-mla"] = run("serve-mla", phase_serve_mla)
         counts["train"] = run("train", phase_train)
         run("train-resume", phase_train_resume)
         counts["checkpoint-remote"] = run("checkpoint-remote",

@@ -8,11 +8,15 @@ On CUDA it selects the "flash" attention backend: the hand-written kernel
 is the reference's serving/prefill fast path (``repro.kernels.ops``), and
 without it every prompt would go through the chunked plain-torch path.
 The kernel takes prompts whose length is a multiple of 128; other lengths
-go to the chunked path, as in the reference.  On CUDA it also selects the
-"kernel" recurrence backend for the RG-LRU blocks (recurrentgemma): the
-reference's model always runs its plain associative scan and calls the
-recurrence kernel from nowhere, so without the switch the hand-written
-kernel would never serve a request.  On CUDA the engine serves through
+go to the chunked path, as in the reference.  The MoE archs take prompts
+of at most 256 tokens or a multiple of 256 (``models/moe.py``'s groups);
+deepseek-v2-lite's MLA never takes the flash kernel (q head dim 192, v
+128).  The weights are drawn in the compute dtype leaf by leaf, so a
+14-16 B-parameter MoE never holds its fp32 tree beside the cast.  On CUDA
+it also selects the "kernel" recurrence backend for the RG-LRU blocks
+(recurrentgemma): the reference's model always runs its plain
+associative scan and calls the recurrence kernel from nowhere, so
+without the switch the hand-written kernel would never serve a request.  On CUDA the engine serves through
 CUDA graphs, captured in the first round of each shape
 (``serve/engine.py``).  After each round it prints how many times the
 flash and the RG-LRU kernels were launched (graph replays included), and
@@ -34,6 +38,7 @@ from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.attention import set_attention_backend
+from repro_torch.models.layers import DEFAULT_POLICY
 from repro_torch.models.params import init_params
 from repro_torch.models.rglru import set_recurrence_backend
 from repro_torch.models.registry import get_api
@@ -68,7 +73,9 @@ def run(argv=None):
     api = get_api(cfg)
     max_seq = args.prompt_len + args.new_tokens * args.rounds + 8
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(api.param_defs(cfg, max_seq), gen, dev)
+    # drawn in the compute dtype: the engine's cast is then a no-op
+    params = init_params(api.param_defs(cfg, max_seq), gen, dev,
+                         compute=DEFAULT_POLICY.compute)
     eng = ServeEngine(cfg, params, max_seq=max_seq, device=dev)
 
     rng = np.random.default_rng(0)

@@ -1,5 +1,6 @@
-"""Attention (torch twin of the GQA part of ``repro.models.attention``):
-full and local-window GQA for prefill, and KV-cache decode.
+"""Attention (torch twin of ``repro.models.attention``): full and
+local-window GQA for prefill, KV-cache decode, and Multi-head Latent
+Attention (DeepSeek-V2) with its absorbed decode over the compressed cache.
 
 Prefill attention is q-chunked (scores never materialize beyond
 (B, KV, G, q_chunk, S)) unless the "flash" backend is selected and the
@@ -10,16 +11,21 @@ chunks with ``torch.chunk``, so it also accepts a length that chunk count
 does not divide (the chunks are then unequal), where the reference, which
 reshapes into equal chunks, raises.
 
-Left out until their slices land (ROADMAP.md, Queue 1): MLA and
-cross-attention (other families), and the sharded ``expand`` GQA layout
-(multi-device; on one device the reference never takes it).
+MLA's q and k have head dim 192 and its v 128, so the flash kernel does
+not take it: its prefill goes through the chunked path, as the
+reference's does.
+
+Left out until their slices land (ROADMAP.md, Queue 1): cross-attention
+(whisper), and the sharded ``expand`` GQA layout (multi-device; on one
+device the reference never takes it).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import DEFAULT_POLICY, Pm, rms_head_norm, rope_qk
+from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_rope,
+                                       rms_head_norm, rope_cos_sin, rope_qk)
 
 NEG_INF = -1e30
 
@@ -67,6 +73,23 @@ def attn_defs(cfg: ArchConfig):
         defs["q_norm"] = Pm((hd,), ("head_dim",), init="ones")
         defs["k_norm"] = Pm((hd,), ("head_dim",), init="ones")
     return defs
+
+
+def mla_defs(cfg: ArchConfig):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": Pm((d, h, qk_dim), ("embed", "heads", "head_dim")),
+        "wkv_a": Pm((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                    ("embed", "kv_lora")),
+        "kv_norm": Pm((m.kv_lora_rank,), ("kv_lora",), init="ones"),
+        "w_uk": Pm((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                   ("kv_lora", "heads", "head_dim")),
+        "w_uv": Pm((m.kv_lora_rank, h, m.v_head_dim),
+                   ("kv_lora", "heads", "head_dim")),
+        "wo": Pm((h, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -239,3 +262,111 @@ def attn_prefill(cfg: ArchConfig, p, x, positions, max_cache: int, *,
     ck[:, slots] = k[:, s - n_keep:].to(cache_dt)
     cv[:, slots] = v[:, s - n_keep:].to(cache_dt)
     return y, {"k": ck, "v": cv}
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): train/prefill expanded; decode absorbed over the
+# compressed cache (the MLA serving path: the cache is (B,S,r)+(B,S,rope)).
+# --------------------------------------------------------------------------
+
+def mla_cache_defs(cfg: ArchConfig, batch: int, max_seq: int,
+                   dtype=torch.bfloat16):
+    m = cfg.mla
+    return {"c_kv": Pm((batch, max_seq, m.kv_lora_rank),
+                       ("batch", "kv_seq", "kv_lora"), init="zeros", dtype=dtype),
+            "k_rope": Pm((batch, max_seq, m.qk_rope_head_dim),
+                         ("batch", "kv_seq", "head_dim"), init="zeros",
+                         dtype=dtype)}
+
+
+def _mla_qkv(cfg, p, x, positions, policy):
+    """Shared projections.  Returns q_nope (B,S,H,dn), q_rope (B,S,H,dr),
+    c_kv (B,S,r) (fp32 RMS-normed, in the compute dtype) and k_rope
+    (B,S,dr); rotary on the rope halves only."""
+    c = policy.c
+    m = cfg.mla
+    q = torch.einsum("bsd,dhk->bshk", x, c(p["wq"]))
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    kv_a = x @ c(p["wkv_a"])                                  # (B,S,r+dr)
+    c_kv, k_rope = kv_a[..., :m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
+    ckf = c_kv.float()
+    var = torch.mean(ckf * ckf, dim=-1, keepdim=True)
+    c_kv = (ckf * torch.rsqrt(var + cfg.norm_eps) * p["kv_norm"]).to(x.dtype)
+    pos2d = positions if positions.ndim == 2 else positions[None]
+    cos, sin = rope_cos_sin(pos2d, m.qk_rope_head_dim, cfg.rope_theta)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expanded(cfg, p, x, positions, policy, q_chunk):
+    """Expand the compressed kv to per-head k, v; standard MHA.  Returns
+    (y, c_kv, k_rope)."""
+    c = policy.c
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions, policy)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, c(p["w_uk"]))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, c(p["w_uv"]))
+    b, s, h = x.shape[0], x.shape[1], cfg.n_heads
+    k_rope_h = k_rope[:, :, None, :].expand(b, s, h, k_rope.shape[-1])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    pos1d = positions[0] if positions.ndim == 2 else positions
+    out = gqa_attention(q, k, v, q_positions=pos1d, k_positions=pos1d,
+                        q_chunk=q_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, c(p["wo"])), c_kv, k_rope
+
+
+def mla_forward(cfg: ArchConfig, p, x, positions, *, policy=DEFAULT_POLICY,
+                q_chunk: int = 1024):
+    """Train/prefill: expand compressed kv to per-head k,v; standard MHA."""
+    return _mla_expanded(cfg, p, x, positions, policy, q_chunk)[0]
+
+
+def mla_prefill(cfg: ArchConfig, p, x, positions, max_cache: int, *,
+                policy=DEFAULT_POLICY, q_chunk: int = 1024, into=None):
+    """Full-sequence MLA that also fills the compressed decode cache.  With
+    ``into`` (dict{c_kv, k_rope} of (B, max_cache, r|dr) buffers in the
+    compute dtype) the cache is written into it, zeros included, and
+    nothing is allocated for it."""
+    m = cfg.mla
+    y, c_kv, k_rope = _mla_expanded(cfg, p, x, positions, policy, q_chunk)
+    b, s = x.shape[0], x.shape[1]
+    cache_dt = x.dtype
+    if into is None:
+        ckv = torch.zeros((b, max_cache, m.kv_lora_rank), dtype=cache_dt,
+                          device=x.device)
+        ckr = torch.zeros((b, max_cache, m.qk_rope_head_dim), dtype=cache_dt,
+                          device=x.device)
+    else:
+        ckv, ckr = into["c_kv"].zero_(), into["k_rope"].zero_()
+    ckv[:, :s] = c_kv.to(cache_dt)
+    ckr[:, :s] = k_rope.to(cache_dt)
+    return y, {"c_kv": ckv, "k_rope": ckr}
+
+
+def mla_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
+    """Absorbed decode: score and combine directly in the r-dim latent
+    space.  x (B,1,D); pos (B,); cache dict{c_kv, k_rope}, updated in
+    place.  Returns (y, cache)."""
+    c = policy.c
+    m = cfg.mla
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(cfg, p, x, pos[:, None],
+                                                    policy)
+    rows = torch.arange(x.shape[0], device=x.device)
+    ckv, ckr = cache["c_kv"], cache["k_rope"]
+    ckv[rows, pos] = c_kv_new[:, 0].to(ckv.dtype)
+    ckr[rows, pos] = k_rope_new[:, 0].to(ckr.dtype)
+
+    # absorb: q' = q_nope @ w_uk -> (B,1,H,r); fp32 scores vs the cache
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, c(p["w_uk"]))
+    s = torch.einsum("bshr,btr->bhst", q_abs.float(), ckv.float())
+    s = s + torch.einsum("bshk,btk->bhst", q_rope.float(), ckr.float())
+    s = s * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    valid = torch.arange(ckv.shape[1], device=x.device)[None] <= pos[:, None]
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    pr = _softmax_fp32(s).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", pr, ckv)             # (B,1,H,r)
+    out = torch.einsum("bshr,rhk->bshk", ctx, c(p["w_uv"]))
+    y = torch.einsum("bshk,hkd->bsd", out, c(p["wo"]))
+    return y, {"c_kv": ckv, "k_rope": ckr}

@@ -1,6 +1,8 @@
 """Generic LM composition (torch twin of ``repro.models.model``), for the
-"attn", "local_attn" and "rglru" block kinds: the dense decoder stacks and
-the RG-LRU + local-attention hybrid (recurrentgemma).
+"attn", "local_attn", "moe" and "rglru" block kinds: the dense decoder
+stacks, the MoE stacks (qwen2-moe; deepseek-v2-lite, whose attention is
+MLA and whose first layer is a dense prefix block) and the RG-LRU +
+local-attention hybrid (recurrentgemma).
 
 Every arch is expressed as prefix blocks (list) + a repeated unit (params
 stacked along a leading L dim) + tail.  The reference scans the stacked
@@ -22,11 +24,11 @@ from repro_torch.models import rglru as rg
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
                                        apply_norm, embed_defs, embed_tokens,
                                        lm_logits, mlp_defs, norm_defs)
+from repro_torch.models.moe import apply_moe, moe_defs
 from repro_torch.models.params import stack_defs
 
 #: Block kinds of the other families, and the ROADMAP.md item that ports them.
 _NOT_PORTED = {
-    "moe": "Queue 1, other families (models/moe.py)",
     "mlstm": "Queue 1, other families (models/xlstm.py)",
     "slstm": "Queue 1, other families (models/xlstm.py)",
 }
@@ -37,12 +39,8 @@ def _check_kind(cfg: ArchConfig, kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: ROADMAP.md, "
             f"{_NOT_PORTED[kind]}")
-    if kind not in ("attn", "local_attn", "rglru"):
+    if kind not in ("attn", "local_attn", "moe", "rglru"):
         raise KeyError(kind)
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            "MLA attention is not ported yet: ROADMAP.md, Queue 1, other "
-            "families (MLA in models/attention.py)")
 
 
 # --------------------------------------------------------------------------
@@ -71,28 +69,53 @@ def _window(cfg, kind) -> int:
     return cfg.window if kind == "local_attn" else 0
 
 
+def _dense_ff(cfg):
+    if cfg.moe is not None and cfg.moe.dense_ff:
+        return cfg.moe.dense_ff
+    return cfg.d_ff
+
+
+def _ff(cfg, kind, p, h, policy):
+    """The block's feed-forward half, the MoE's aux loss dropped (serving
+    steps do not read it)."""
+    if kind == "moe":
+        return apply_moe(cfg, p, h, policy)[0]
+    return apply_mlp(cfg, p, h, policy)
+
+
 def block_defs(cfg: ArchConfig, kind: str):
     _check_kind(cfg, kind)
     if kind == "rglru":
         return rg.rglru_defs(cfg)
-    return {"ln1": norm_defs(cfg), "attn": att.attn_defs(cfg),
-            "ln2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
+    adefs = att.mla_defs(cfg) if cfg.mla is not None else att.attn_defs(cfg)
+    ff = (moe_defs(cfg) if kind == "moe"
+          else mlp_defs(cfg, d_ff=_dense_ff(cfg)))
+    return {"ln1": norm_defs(cfg), "attn": adefs,
+            "ln2": norm_defs(cfg), "mlp": ff}
 
 
 def apply_block(cfg, kind, p, x, positions, policy=DEFAULT_POLICY):
     """Training/prefill-style full-sequence block.  Returns (x, aux, cache);
-    the cache is the recurrent carry state, None for attention kinds."""
+    the cache is the recurrent carry state, None for attention kinds, and
+    aux the MoE load-balance loss (0 for the other kinds)."""
     _check_kind(cfg, kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rglru":
         x, state = rg.rglru_apply(cfg, p, x, policy)
         return x, aux, state
     h = apply_norm(cfg, p["ln1"], x, policy)
-    x = x + att.attn_forward(cfg, p["attn"], h, positions,
+    if cfg.mla is not None:
+        a = att.mla_forward(cfg, p["attn"], h, positions, policy=policy)
+    else:
+        a = att.attn_forward(cfg, p["attn"], h, positions,
                              window=_window(cfg, kind), policy=policy)
+    x = x + a
     h = apply_norm(cfg, p["ln2"], x, policy)
-    x = x + apply_mlp(cfg, p["mlp"], h, policy)
-    return x, aux, None
+    if kind == "moe":
+        m, aux = apply_moe(cfg, p["mlp"], h, policy)
+    else:
+        m = apply_mlp(cfg, p["mlp"], h, policy)
+    return x + m, aux, None
 
 
 def block_cache_defs(cfg, kind, batch: int, max_seq: int,
@@ -100,6 +123,8 @@ def block_cache_defs(cfg, kind, batch: int, max_seq: int,
     _check_kind(cfg, kind)
     if kind == "rglru":
         return rg.rglru_state_defs(cfg, batch, dtype)
+    if cfg.mla is not None and kind != "local_attn":
+        return att.mla_cache_defs(cfg, batch, max_seq, dtype)
     return att.kv_cache_defs(cfg, batch, max_seq, dtype)  # window-clipped
 
 
@@ -118,10 +143,11 @@ def decode_block(cfg, kind, p, x, cache, pos, policy=DEFAULT_POLICY):
         x, state = rg.rglru_decode(cfg, p, x, cache, policy)
         return x, _write_state(cache, state)
     h = apply_norm(cfg, p["ln1"], x, policy)
-    a, cache = att.attn_decode(cfg, p["attn"], h, cache, pos, policy=policy)
+    decode = att.mla_decode if cfg.mla is not None else att.attn_decode
+    a, cache = decode(cfg, p["attn"], h, cache, pos, policy=policy)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x, policy)
-    return x + apply_mlp(cfg, p["mlp"], h, policy), cache
+    return x + _ff(cfg, kind, p["mlp"], h, policy), cache
 
 
 def prefill_block(cfg, kind, p, x, positions, max_cache: int,
@@ -134,12 +160,16 @@ def prefill_block(cfg, kind, p, x, positions, max_cache: int,
         x, _, cache = apply_block(cfg, kind, p, x, positions, policy)
         return x, cache if into is None else _write_state(into, cache)
     h = apply_norm(cfg, p["ln1"], x, policy)
-    a, cache = att.attn_prefill(cfg, p["attn"], h, positions, max_cache,
-                                window=_window(cfg, kind), policy=policy,
-                                into=into)
+    if cfg.mla is not None:
+        a, cache = att.mla_prefill(cfg, p["attn"], h, positions, max_cache,
+                                   policy=policy, into=into)
+    else:
+        a, cache = att.attn_prefill(cfg, p["attn"], h, positions, max_cache,
+                                    window=_window(cfg, kind), policy=policy,
+                                    into=into)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x, policy)
-    return x + apply_mlp(cfg, p["mlp"], h, policy), cache
+    return x + _ff(cfg, kind, p["mlp"], h, policy), cache
 
 
 # --------------------------------------------------------------------------
@@ -161,9 +191,9 @@ def lm_param_defs(cfg: ArchConfig, max_seq: int):
 
 def lm_cache_defs(cfg: ArchConfig, batch: int, max_seq: int,
                   dtype=torch.bfloat16):
-    """The decode cache; ``dtype`` is the compute dtype it holds (k, v and
-    the rglru conv window; the rglru h is fp32), which the prefill's own
-    cache has."""
+    """The decode cache; ``dtype`` is the compute dtype it holds (k, v, the
+    MLA c_kv and k_rope, and the rglru conv window; the rglru h is fp32),
+    which the prefill's own cache has."""
     prefix, unit, n_units, tail = stack_plan(cfg)
 
     def one(k):

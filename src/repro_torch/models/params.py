@@ -71,23 +71,32 @@ def stack_defs(defs, n: int):
         defs)
 
 
-def init_params(defs, generator: torch.Generator, device="cuda"):
+def init_params(defs, generator: torch.Generator, device="cuda",
+                compute=None):
     """Real tensors on ``device``; ``generator`` must live on that device.
     Same distribution as the reference (std = scale/sqrt(fan_in),
     fan_in = shape[-2]), not the same bits: jax.random and torch draw
-    different streams."""
+    different streams.
+
+    With ``compute`` (a dtype), each leaf of two or more dims is cast to it
+    as soon as it is drawn, as ``Policy.cast_params`` casts such leaves
+    after: the same values, with the fp32 tree never alive beside its
+    cast (qwen2-moe-a2.7b's is 57.3 GB).  Each leaf is scaled in place, so
+    building a tree takes its own size plus one fp32 leaf."""
     dev = resolve_device(device)
 
     def one(p: Pm):
+        dtype = (compute if compute is not None and len(p.shape) >= 2
+                 else p.dtype)
         if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=p.dtype, device=dev)
+            return torch.zeros(p.shape, dtype=dtype, device=dev)
         if p.init == "ones":
-            return torch.ones(p.shape, dtype=p.dtype, device=dev)
+            return torch.ones(p.shape, dtype=dtype, device=dev)
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         std = p.scale / math.sqrt(max(fan_in, 1))
         x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return (x * std).to(p.dtype)
+        return x.mul_(std).to(dtype)
 
     return tree_map_pm(one, defs)
 

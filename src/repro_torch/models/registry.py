@@ -33,3 +33,15 @@ def get_api(cfg: ArchConfig) -> ModelAPI:
 
 def count_params(cfg: ArchConfig, max_seq: int = 4096) -> int:
     return param_count(get_api(cfg).param_defs(cfg, max_seq))
+
+
+def active_param_ratio(cfg: ArchConfig) -> float:
+    """Fraction of per-token-active params (MoE: top_k+shared of routed)."""
+    if cfg.moe is None:
+        return 1.0
+    e = cfg.moe
+    total_moe = e.n_routed * 3 * cfg.d_model * e.d_expert
+    active_moe = (e.top_k + e.n_shared) * 3 * cfg.d_model * e.d_expert
+    n_moe_layers = cfg.n_layers - e.first_k_dense
+    total = count_params(cfg)
+    return (total - n_moe_layers * (total_moe - active_moe)) / total

@@ -46,8 +46,8 @@ from repro_torch.models.layers import Policy as TPolicy
 from repro_torch.models.params import is_pm, params_from_numpy, tree_leaves
 from repro_torch.models.registry import get_api as t_get_api
 from repro_torch.serve.engine import ServeEngine as TServeEngine
-from test_torch_serve import (_agree_up_to_ties, _fp32_forward_logits,
-                              _hybrid_setup, _setup)
+from test_torch_serve import (_agree_up_to_ties, _deepseek_setup,
+                              _fp32_forward_logits, _hybrid_setup, _setup)
 
 T32 = TPolicy(compute=torch.float32)
 
@@ -338,7 +338,8 @@ def test_remote_store_and_absent_card_raise(tmp_path, monkeypatch):
 
 # ----------------------------------------------------------------- keys
 
-@pytest.mark.parametrize("name", ["smollm-135m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("name", ["smollm-135m", "recurrentgemma-9b",
+                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
 def test_leaf_paths_match_reference_on_params(name):
     jc = reduce_for_smoke(ARCHS[name])
     jp = j_init_params(j_get_api(jc).param_defs(jc, 32), jax.random.PRNGKey(0))
@@ -516,8 +517,8 @@ def _payload(eng, pos):
 
 
 @pytest.mark.parametrize("setup,prompt_len,max_seq", [
-    (_setup, 8, 48), (_hybrid_setup, 20, 40)],
-    ids=["smollm-135m", "recurrentgemma-9b"])
+    (_setup, 8, 48), (_hybrid_setup, 20, 40), (_deepseek_setup, 8, 48)],
+    ids=["smollm-135m", "recurrentgemma-9b", "deepseek-v2-lite-16b"])
 def test_serving_snapshot_crosses_packages(tmp_path, setup, prompt_len,
                                            max_seq):
     """Each engine generates 4 tokens under DEFAULT_POLICY from the same
@@ -527,7 +528,8 @@ def test_serving_snapshot_crosses_packages(tmp_path, setup, prompt_len,
     test_torch_serve.py::test_serve_engines_agree_under_default_policy holds
     them.  In the port, the continuation from its restored snapshot equals
     the live engine's exactly, and the live engine's in-place decode does
-    not reach the written snapshot."""
+    not reach the written snapshot.  deepseek-v2-lite's cache is MLA's
+    compressed c_kv and k_rope, with a dense prefix block."""
     jc, tc, jp, tp = setup(max_seq)
     prompts = np.random.default_rng(1).integers(
         0, jc.vocab_size, (2, prompt_len)).astype(np.int32)
@@ -547,6 +549,9 @@ def test_serving_snapshot_crosses_packages(tmp_path, setup, prompt_len,
     assert {k: v[:2] for k, v in j_raw.items()} == \
         {k: v[:2] for k, v in t_raw.items()}
     assert t_raw["pos"][0] == "int32"
+    if tc.mla is not None:      # the compressed cache, the prefix block's too
+        assert {"cache/prefix/0/c_kv", "cache/prefix/0/k_rope",
+                "cache/units/b0/c_kv", "cache/units/b0/k_rope"} <= set(t_raw)
     metas = [tser.load_manifest(m.root / "step_0000000001")["meta"]
              for m in (jm, tm)]
     assert [(m["kind"], m["arch"]) for m in metas] == \

@@ -63,10 +63,20 @@ def smoke(monkeypatch):
     hybrid = dataclasses.replace(reduce_for_smoke(ARCHS["recurrentgemma-9b"]),
                                  name="smoke-hybrid-hd64", head_dim=64,
                                  window=64)
-    for cfg in (tiny, hybrid):
+    moe = dataclasses.replace(reduce_for_smoke(ARCHS["qwen2-moe-a2.7b"]),
+                              name="smoke-moe-hd64", head_dim=64)
+    mla = dataclasses.replace(reduce_for_smoke(ARCHS["deepseek-v2-lite-16b"]),
+                              name="smoke-mla")
+    for cfg in (tiny, hybrid, moe, mla):
         monkeypatch.setitem(ARCHS, cfg.name, cfg)
     monkeypatch.setattr(mod, "ARCH", tiny.name)
     monkeypatch.setattr(mod, "HYBRID", hybrid.name)
+    monkeypatch.setattr(mod, "MOE", moe.name)
+    monkeypatch.setattr(mod, "MLA", mla.name)
+    monkeypatch.setattr(mod, "MOE_SERVE",
+                        dict(batch=2, prompt=256, new_tokens=4))
+    monkeypatch.setattr(mod, "MOE_FLASH_SHAPE",
+                        dict(b=2, h=4, kv=4, s=256, hd=64))
     monkeypatch.setattr(mod, "HYBRID_PARITY_PROMPT", 128)
     monkeypatch.setattr(mod, "HYBRID_SERVE",
                         dict(batch=2, prompt=128, new_tokens=4))
@@ -128,6 +138,8 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     assert errs == {"flash_attention_fwd": {"serve": 0.0, "serve-hybrid": 0.0,
                                             "serve-parity": 0.0,
                                             "serve-parity-hybrid": 0.0,
+                                            "serve-moe": 0.0,
+                                            "serve-parity-moe": 0.0,
                                             "train": 0.0},
                     "rglru_scan": {"serve-hybrid": 0.0,
                                    "serve-parity-hybrid": 0.0,
@@ -139,10 +151,14 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     smoke.phase_serve_parity_hybrid(card)
     counts["serve-hybrid"] = smoke.phase_serve_hybrid(card)
     smoke.phase_snapshot_hybrid(card)
+    smoke.phase_serve_parity_moe(card)
+    counts["serve-moe"] = smoke.phase_serve_moe(card)
+    counts["serve-mla"] = smoke.phase_serve_mla(card)
     counts["train"] = smoke.phase_train(card)
     smoke.phase_train_resume(card)
     counts["checkpoint-remote"] = smoke.phase_checkpoint_remote(card)
     # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks;
+    # the tiny qwen 2 moe blocks, deepseek's MLA never takes flash;
     # training launches flash twice a layer (remat), 10 steps; the remote
     # phase's three legs one step each, and the hybrid leg one prefill
     assert counts == {
@@ -150,6 +166,10 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
                   "quantize_int8": 0, "dequantize_int8": 0},
         "serve-hybrid": {"flash_attention_fwd": 2, "rglru_scan": 6,
                          "quantize_int8": 0, "dequantize_int8": 0},
+        "serve-moe": {"flash_attention_fwd": 2, "rglru_scan": 0,
+                      "quantize_int8": 0, "dequantize_int8": 0},
+        "serve-mla": {"flash_attention_fwd": 0, "rglru_scan": 0,
+                      "quantize_int8": 0, "dequantize_int8": 0},
         "train": {"flash_attention_fwd": 60, "rglru_scan": 0,
                   "quantize_int8": 0, "dequantize_int8": 0},
         "checkpoint-remote": {"flash_attention_fwd": 3 * 6 + 2,
@@ -164,8 +184,9 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     line = smoke.kernels_line(errs, counts, timing)["kernels"]
     assert [k["name"] for k in line] == ["flash_attention_fwd", "rglru_scan",
                                          "quantize_int8", "dequantize_int8"]
-    assert [k["launches"] for k in line] == [85, 12, 0, 0]
+    assert [k["launches"] for k in line] == [87, 12, 0, 0]
     assert line[0]["launches_by_path"] == {"serve": 3, "serve-hybrid": 2,
+                                           "serve-moe": 2, "serve-mla": 0,
                                            "train": 60,
                                            "checkpoint-remote": 20}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -187,14 +208,16 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
              if ln.startswith('{"phase"')]
     assert [ln["phase"] for ln in lines] == [
         "kernels", "serve-parity", "serve", "checkpoint",
-        "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid", "train",
+        "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid",
+        "serve-parity-moe", "serve-moe", "serve-mla", "train",
         "train-resume", "checkpoint-remote", "timing"]
     assert all(ln["ok"] for ln in lines)
     phase = {ln["phase"]: ln for ln in lines}
     # the smollm snapshot: k and v of the stacked cache, pos, generated
     assert phase["serve"]["snapshot"]["n_leaves"] == 4
-    for name in ("serve", "serve-hybrid"):
+    for name in ("serve", "serve-hybrid", "serve-moe", "serve-mla"):
         _check_graph_fields(phase[name])
+    _check_moe_phases(phase, smoke)
     assert phase["snapshot-hybrid"]["capture_s"] == 0.0
     ckpt = phase["checkpoint"]
     assert ckpt["leaves_equal"] and ckpt["resave"]["last_bytes_written"] == 0
@@ -239,6 +262,35 @@ def _check_graph_fields(line):
         assert set(ways) == {"uncaptured", "captured"}
         assert all(w["wall_s"] > 0 and w["device_ops"] is None
                    and w["top"] for w in ways.values())
+
+
+def _check_moe_phases(phase, smoke):
+    """serve-parity-moe: every block held (the tiny qwen's 2), routing
+    compared on each moe block; serve-moe and serve-mla: the decode step
+    beside its weight-read bound; serve-mla: absorbed against expanded MLA
+    on both layers, the compressed cache smaller than an expanded one, and
+    the snapshot's leaves (c_kv and k_rope of the prefix block and of the
+    stacked units, pos, generated)."""
+    parity = phase["serve-parity-moe"]
+    assert parity["blocks"] == {"moe": 2}
+    assert parity["prefill_launches"] == {"flash": 2, "rglru": 0}
+    assert len(parity["routing_flips"]) == 2
+    assert parity["block_max_abs_diff"]["moe"] <= smoke.PARITY_TOL
+    assert parity["prompt"] == 512                      # two MoE groups
+    for name in ("serve-moe", "serve-mla"):
+        bound = phase[name]["decode_bound"]
+        assert 0 < bound["bound_ms"] and bound["weight_bytes"] > 0
+        assert bound["share_of_bound"] == pytest.approx(
+            bound["bound_ms"] / phase[name]["second_request"]["decode_step_ms"])
+    mla = phase["serve-mla"]
+    absorbed = mla["absorbed_vs_expanded"]
+    assert absorbed["layers"] == 2
+    assert absorbed["max_diff_over_scale"] <= smoke.PARITY_TOL
+    assert absorbed["max_abs_diff"] <= smoke.PARITY_TOL    # at smoke widths
+    assert len(absorbed["per_layer"]["noise_floor"]) == 2
+    assert mla["cache"]["compressed_bytes"] < mla["cache"]["expanded_bytes"]
+    assert mla["snapshot"]["valid"]
+    assert mla["snapshot"]["n_leaves"] == 2 * 2 + 2
 
 
 def _check_remote_phase(remote):

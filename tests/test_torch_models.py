@@ -35,6 +35,7 @@ T32 = t_layers.Policy(compute=torch.float32)
 DENSE = ["granite-34b", "llava-next-34b", "smollm-135m", "stablelm-12b",
          "yi-9b"]
 HYBRID = "recurrentgemma-9b"
+MOE = ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]
 # Logits of the smoke stacks are O(1); fp32 with another summation order
 # agrees to ~1e-5, so 1e-4 leaves a margin without hiding a real fault.
 LOGIT_ATOL = 1e-4
@@ -209,10 +210,12 @@ def test_lm_prefill_decode_match_jax():
         _close(tl, jl, LOGIT_ATOL)
 
 
-@pytest.mark.parametrize("name", DENSE + [HYBRID])
+@pytest.mark.parametrize("name", DENSE + [HYBRID] + MOE)
 def test_prefill_decode_matches_forward(name):
     """Twin of test_models_smoke.py::test_prefill_decode_matches_forward,
-    on the port alone (same atol 2e-3)."""
+    on the port alone (same atol 2e-3; for the MoE archs the reference's
+    0.5: capacity dispatch may drop tokens in the competitive full/prefill
+    pass, never in decode)."""
     _, tc = _cfgs(name)
     api = t_get_api(tc)
     B, S, P = 2, 32, 24
@@ -225,7 +228,8 @@ def test_prefill_decode_matches_forward(name):
         lg, cache = api.decode(tc, tp, cache, toks[:, t:t + 1],
                                torch.full((B,), t), T32)
         errs.append(float((lg - full[:, t]).abs().max()))
-    assert max(errs) < 2e-3, (name, max(errs))
+    tol = 0.5 if tc.moe is not None else 2e-3
+    assert max(errs) < tol, (name, max(errs))
 
 
 def test_lm_forward_flash_backend_matches_jax_pallas():
@@ -250,13 +254,19 @@ def test_lm_forward_flash_backend_matches_jax_pallas():
 
 
 def test_count_params_matches_jax_and_unported_families_raise():
+    from repro.models.registry import active_param_ratio as j_ratio
     from repro.models.registry import count_params as j_count_params
-    for name in DENSE + [HYBRID]:
+    from repro_torch.models.registry import active_param_ratio as t_ratio
+    for name in DENSE + [HYBRID] + MOE:
         assert t_count_params(T_ARCHS[name]) == j_count_params(ARCHS[name])
+        assert t_ratio(T_ARCHS[name]) == j_ratio(ARCHS[name])
     assert t_count_params(T_ARCHS["smollm-135m"]) == T_ARCHS["smollm-135m"].n_params()
     assert t_count_params(T_ARCHS[HYBRID]) == 10_444_664_832
-    for name in ["qwen2-moe-a2.7b", "xlstm-1.3b", "whisper-tiny",
-                 "deepseek-v2-lite-16b"]:
+    # JAX count_params on the CPU; deepseek's dense first layer is 10944 wide
+    assert t_count_params(T_ARCHS["qwen2-moe-a2.7b"]) == 14_315_636_736
+    assert t_count_params(T_ARCHS["deepseek-v2-lite-16b"]) == 15_706_484_224
+    assert t_ratio(T_ARCHS["smollm-135m"]) == 1.0
+    for name in ["xlstm-1.3b", "whisper-tiny"]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             t_count_params(T_ARCHS[name])
 

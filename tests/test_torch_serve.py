@@ -34,13 +34,22 @@ T32 = TPolicy(compute=torch.float32)
 TIE_GAP = 1e-2
 
 
-def _setup(max_seq):
-    jc = reduce_for_smoke(ARCHS["smollm-135m"])
-    tc = t_reduce_for_smoke(T_ARCHS["smollm-135m"])
-    jp = j_init_params(j_get_api(jc).param_defs(jc, max_seq),
-                       jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    return jc, tc, jp, tp
+def _arch_setup(name):
+    """``setup(max_seq)`` -> the reduced configs of ``name`` in both
+    packages, JAX-initialised params and the port's copy of them."""
+    def setup(max_seq):
+        jc = reduce_for_smoke(ARCHS[name])
+        tc = t_reduce_for_smoke(T_ARCHS[name])
+        jp = j_init_params(j_get_api(jc).param_defs(jc, max_seq),
+                           jax.random.PRNGKey(0))
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+        return jc, tc, jp, tp
+    return setup
+
+
+_setup = _arch_setup("smollm-135m")
+_qwen_setup = _arch_setup("qwen2-moe-a2.7b")
+_deepseek_setup = _arch_setup("deepseek-v2-lite-16b")
 
 
 def _agree_up_to_ties(tokens_a, tokens_b, prompts, forward_logits,
@@ -237,11 +246,26 @@ def test_hybrid_serve_cli_runs_on_cpu(capsys):
     assert '"rglru_launches": 0' in capsys.readouterr().out
 
 
+# --------------------------------------------------------------------- moe
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
+def test_moe_serve_cli_runs_on_cpu(capsys, arch):
+    """A prompt of 256 (one MoE group); deepseek's MLA is never flash."""
+    rows = t_serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                         "--prompt-len", "256", "--new-tokens", "4",
+                         "--device", "cpu"])
+    assert len(rows) == 1 and rows[0]["flash_launches"] == 0
+    assert rows[0]["tok_per_s"] > 0
+    assert '"flash_launches": 0' in capsys.readouterr().out
+
+
 # ------------------------------------------------- both engines in bf16
 
 @pytest.mark.parametrize("setup,prompt_len,max_seq", [
-    (_setup, 8, 48), (_hybrid_setup, 20, 40)],
-    ids=["smollm-135m", "recurrentgemma-9b"])
+    (_setup, 8, 48), (_hybrid_setup, 20, 40), (_qwen_setup, 8, 48),
+    (_deepseek_setup, 8, 48)],
+    ids=["smollm-135m", "recurrentgemma-9b", "qwen2-moe-a2.7b",
+         "deepseek-v2-lite-16b"])
 def test_serve_engines_agree_under_default_policy(setup, prompt_len, max_seq):
     """Both engines under DEFAULT_POLICY (bf16 compute, fp32 params) on the
     same numpy weights: there the reference computes what it is asked to,

@@ -45,9 +45,10 @@ from repro_torch.train.step import loss_and_grads, make_train_step
 J32 = JPolicy(compute=jnp.float32)
 T32 = TPolicy(compute=torch.float32)
 HYBRID = "recurrentgemma-9b"
-# the dense archs and the hybrid: the block kinds the port has
+MOE = ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]
+# the dense archs, the hybrid and the MoE archs: the block kinds the port has
 PORTED = ["granite-34b", "llava-next-34b", "smollm-135m", "stablelm-12b",
-          "yi-9b", HYBRID]
+          "yi-9b", HYBRID] + MOE
 # tests/test_substrate.py:22
 ADAMW_RTOL = 1e-5
 # fp32 in another summation order: the loss to 1e-5 relative, and each
@@ -83,16 +84,19 @@ def _cfgs(name):
 def _tame_attention(state):
     """wq and wk of every attention block scaled by 1/4 in the shared JAX
     params (as tests/test_torch_models.py::_tame_local_attention does for
-    the hybrid).  The reference's fan_in is shape[-2], the head count, so at
-    smoke widths the scores are large and the softmax near one-hot: the
-    stack's own fp32 noise floor (the JAX gradients moved by a 1e-7
-    relative change of the params) is then 1.5e-5 to 3e-5 of each leaf's
-    largest element for smollm-135m, above GRAD_RTOL, and no
+    the hybrid); for MLA, whose keys come from w_uk, wq and w_uk.  The
+    reference's fan_in is shape[-2], the head count, so at smoke widths the
+    scores are large and the softmax near one-hot: the stack's own fp32
+    noise floor (the JAX gradients moved by a 1e-7 relative change of the
+    params) is then 1.5e-5 to 3e-5 of each leaf's largest element for
+    smollm-135m and 2.8e-5 for deepseek-v2-lite, above GRAD_RTOL, and no
     implementation could meet it."""
-    for unit in state["params"]["units"].values():
-        if "attn" in unit:
-            attn = unit["attn"]
-            attn["wq"], attn["wk"] = attn["wq"] * 0.25, attn["wk"] * 0.25
+    params = state["params"]
+    for block in list(params["units"].values()) + list(params["prefix"]):
+        if "attn" in block:
+            attn = block["attn"]
+            wk = "wk" if "wk" in attn else "w_uk"
+            attn["wq"], attn[wk] = attn["wq"] * 0.25, attn[wk] * 0.25
     return state
 
 
@@ -212,25 +216,26 @@ def _jax_loss_and_grads(jc, params, batch, accum):
     def loss_fn(p, mb):
         logits, aux = api.forward(jc, p, mb, J32, True)
         loss = j_softmax_xent(logits, mb["targets"])
-        return loss + aux, loss
+        return loss + aux, (loss, aux)
 
     vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     n = batch["tokens"].shape[0] // accum
-    losses, grads = [], []
+    losses, auxes, grads = [], [], []
     for i in range(accum):
         mb = {k: jnp.asarray(v[i * n:(i + 1) * n]) for k, v in batch.items()}
-        (_, loss), g = vg(params, mb)
+        (_, (loss, aux)), g = vg(params, mb)
         losses.append(float(loss))
+        auxes.append(float(aux))
         grads.append(g)
     if accum == 1:
-        return losses[0], grads[0]
-    return (float(np.mean(losses)),
+        return losses[0], auxes[0], grads[0]
+    return (float(np.mean(losses)), float(np.mean(auxes)),
             jax.tree.map(lambda *gs: sum(g.astype(jnp.float32) for g in gs)
                          / accum, *grads))
 
 
 @pytest.mark.parametrize("mode", ["plain", "accum2", "master_fp32"])
-@pytest.mark.parametrize("name", ["smollm-135m", HYBRID])
+@pytest.mark.parametrize("name", ["smollm-135m", HYBRID] + MOE)
 def test_train_step_matches_reference(name, mode):
     """One step from one state: the JAX TrainState crosses with
     train_state_from_numpy; loss at 1e-5 relative and every gradient leaf
@@ -248,12 +253,15 @@ def test_train_step_matches_reference(name, mode):
     tstate = train_state_from_numpy(jstate, "cpu")
     batch = _batch(tc, B, S)
 
-    j_loss, j_grads = _jax_loss_and_grads(jc, _to_jax(jstate["params"]),
-                                          batch, accum)
-    t_loss, _, t_grads = loss_and_grads(
+    j_loss, j_aux, j_grads = _jax_loss_and_grads(
+        jc, _to_jax(jstate["params"]), batch, accum)
+    t_loss, t_aux, t_grads = loss_and_grads(
         tc, tstate["params"], {k: torch.from_numpy(v) for k, v in batch.items()},
         policy=T32, remat=True, accum_steps=accum)
     np.testing.assert_allclose(float(t_loss), j_loss, rtol=GRAD_RTOL)
+    # the MoE load-balance loss (0 for the other archs), as the MoE tests
+    np.testing.assert_allclose(float(t_aux), j_aux, rtol=0, atol=1e-6)
+    assert (j_aux > 0) == (tc.moe is not None)
     rtol = 2.0 ** -8 if master else GRAD_RTOL
     jl = jax.tree.leaves(j_grads)
     assert len(tree_leaves(t_grads)) == len(jl)
