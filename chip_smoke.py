@@ -81,6 +81,33 @@ one JSON line each; any failure exits non-zero:
                  one of the 27 layers' weights in fp32 (at PARITY_TOL of
                  the output's scale, beside the fp32 noise floor), and the
                  compressed cache's bytes beside an expanded K/V cache's
+  serve-parity-xlstm
+                 full-width xlstm-1.3b (seeded random weights), fp32, B=1:
+                 the chunkwise mLSTM over 512 tokens (two chunks) against
+                 its first 256 and 256 recurrent decode steps, and the
+                 sLSTM scan likewise, each of the 48 blocks from the same
+                 input (held at the reference's 2e-3, or PARITY_TOL of the
+                 output's scale, beside the fp32 noise floor); end to end
+                 at a one-unit cut (7 mLSTM, 1 sLSTM): the forward's logits
+                 over 256 tokens against prefill 224 + 32 teacher-forced
+                 decode steps, the engine's greedy tokens against greedy by
+                 the forward, and the cut's logits on the card against the
+                 port on the CPU
+  serve-xlstm    the repro_torch.launch.serve path, xlstm-1.3b at full
+                 width, bf16, B=4, prompt 512, 32 new tokens: no kernel
+                 launch (no TPU kernel computes an xLSTM block), the graph
+                 checks of serve, the decode step beside its bound (the
+                 weights, and the mLSTM's C read and written in place),
+                 peak memory, and each block kind's share of the prefill,
+                 captured and not (the sLSTM's time loop)
+  serve-whisper  full-width whisper-tiny: fp32, B=1, prompt 128, flash
+                 against chunked in each of the 4 decoder blocks and end to
+                 end (logits, greedy tokens); then the serve CLI, bf16,
+                 B=4, prompt 128, 32 new tokens, frames (4, 1500, 384), the
+                 encoder inside the captured prefill: 4 flash launches a
+                 request, the graph checks of serve, the decode step beside
+                 its bound, the serving snapshot validated with its cross
+                 K/V leaves
   train          the repro_torch.train.loop.train path, smollm-135m at full
                  width, bf16, the flash backend, remat on, B=8, seq 2048, 10
                  steps: the other main path; 60 flash launches a step (the
@@ -110,7 +137,8 @@ one JSON line each; any failure exits non-zero:
                  from each leg's restore, equal losses; then the 9B
                  serving snapshot through three servers, equal tokens
   timing         every kernel at the shapes its paths give it (flash also
-                 at qwen2-moe's, and in fp32 at the serve-parity shapes,
+                 at qwen2-moe's and whisper-tiny's, and in fp32 at the
+                 serve-parity shapes,
                  the RG-LRU scan at both hybrid shapes and with bf16
                  inputs) against its plain
                  version, a PyTorch call where one computes the same
@@ -158,6 +186,20 @@ MOE_PARITY_PROMPT = 512                            # two MoE groups of 256
 MOE_SERVE = dict(batch=4, prompt=512, new_tokens=32)
 # qwen2-moe-a2.7b prefill at B=4: 16 heads over 16 kv heads (g = 1), hd 128
 MOE_FLASH_SHAPE = dict(b=4, h=16, kv=16, s=512, hd=128)
+XLSTM = "xlstm-1.3b"                               # served at full width
+XLSTM_CUT_LAYERS = 8                               # one unit: 7 mLSTM, 1 sLSTM
+# serve-parity-xlstm: chunkwise over `prompt` tokens (two chunks) against
+# chunkwise over the first `split` and recurrent steps over the rest; end
+# to end at the cut, the forward over `cut_seq` tokens against a prefill
+# of `cut_prefill` and teacher-forced decode steps, and `greedy` tokens
+XLSTM_PARITY = dict(prompt=512, split=256, cut_seq=256, cut_prefill=224,
+                    greedy=8)
+XLSTM_SERVE = dict(batch=4, prompt=512, new_tokens=32)
+WHISPER = "whisper-tiny"                           # served at full width
+WHISPER_PARITY_PROMPT = 128
+WHISPER_SERVE = dict(batch=4, prompt=128, new_tokens=32)
+# its decoder self-attention at prefill: MHA, q = kv = (B*6) x 128 x 64
+WHISPER_FLASH_SHAPE = dict(b=4, h=6, kv=6, s=128, hd=64)
 # a token whose expert set differs between two paths that agree to ~1e-6
 # is a near tie when its k-th and (k+1)-th router probs are this close
 # (fp32 paths move the probs by ~1e-9; adjacent probs lie ~1e-4 apart)
@@ -214,6 +256,9 @@ RGLRU_STRESS = [(2, 63, 512, "sigmoid"), (2, 64, 512, "sigmoid"),
                 (2, 1024, 512, "zeros"), (2, 300, 256, "offset")]
 QUANT_SIZES = [(4096, 256), (512, 128), (65536, 256)]
 PARITY_TOL = 1e-3                                  # kernel vs plain paths
+# the reference's own prefill + decode vs forward tolerance
+# (tests/test_models_smoke.py:90), for the xLSTM's two forms
+REFERENCE_TOL = 2e-3
 # smollm-135m trained at full width through repro_torch.train.loop.train:
 # bf16 DEFAULT_POLICY, flash backend, remat on, 16,384 tokens a step; a
 # crash after step fail_at, resumed from the step-ckpt_every checkpoint
@@ -859,18 +904,20 @@ def _launches() -> dict:
             "dequantize_int8": ops.DEQUANT_LAUNCHES}
 
 
-def _uncaptured(eng, prompts, n_new) -> dict:
+def _uncaptured(eng, prompts, n_new, extras=None) -> dict:
     """The engine's request run uncaptured on the same device: the model's
     prefill into a cache of its own, then the ``_continue`` loop, each op
     dispatched from Python, each clock read after a synchronize."""
     import torch
     b, p = prompts.shape
     tokens = torch.as_tensor(prompts, dtype=torch.long, device=DEV)
+    dev_extras = {k: torch.as_tensor(v, device=DEV)
+                  for k, v in (extras or {}).items()}
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        logits, cache = eng.api.prefill(eng.cfg, eng.params, tokens, {},
-                                        eng.max_seq, eng.policy)
+        logits, cache = eng.api.prefill(eng.cfg, eng.params, tokens,
+                                        dev_extras, eng.max_seq, eng.policy)
         first = torch.argmax(logits, dim=-1)[:, None]
         sync()
         prefill_s = time.perf_counter() - t0
@@ -892,7 +939,8 @@ def _profile_steps(eng, b, p) -> dict:
     import functools
 
     import torch
-    batch, prompt = eng._batches[b], eng._prompts[((b, p), ())]
+    batch = eng._batches[b]
+    prompt = next(pr for key, pr in eng._prompts.items() if key[0] == (b, p))
     with torch.inference_mode():
         prefill, decode = eng._programs(batch, prompt)
         steps = {"decode": (functools.partial(eng._decode_step, batch), decode),
@@ -903,13 +951,14 @@ def _profile_steps(eng, b, p) -> dict:
                 for name, (eager, run) in steps.items()}
 
 
-def _graph_checks(eng, batch, prompt, new_tokens) -> dict:
+def _graph_checks(eng, batch, prompt, new_tokens, extras=None) -> dict:
     """After the main path's round, which captured the engine's graphs: a
     second request of the same shape (new prompts, the same graphs), both
     requests' tokens and last-step logits against the same request run
     uncaptured on the device (bit for bit), the launches of the second
     request, and the profiles.  The first request's prompts are the
-    CLI's (``launch/serve.py``: seed 0)."""
+    CLI's (``launch/serve.py``: seed 0), and both requests carry the
+    CLI's ``extras`` (whisper's frames)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -922,11 +971,11 @@ def _graph_checks(eng, batch, prompt, new_tokens) -> dict:
     _backends(True)                             # what the CLI selected
     try:
         ops.reset_launch_counts()
-        res = eng.generate(prompts[1], new_tokens)
+        res = eng.generate(prompts[1], new_tokens, extras=extras)
         launches = _launches()
         captured.append({"tokens": res.tokens,
                          "logits": eng._batches[batch].logits.clone()})
-        plain = [_uncaptured(eng, p, new_tokens) for p in prompts]
+        plain = [_uncaptured(eng, p, new_tokens, extras) for p in prompts]
         profiles = _profile_steps(eng, batch, prompt)
     finally:
         _backends(False)
@@ -1246,31 +1295,59 @@ def phase_serve_parity_moe(card_line):
          peak_bytes=peak_bytes(), **out)
 
 
-def decode_bound(eng) -> dict:
-    """A decode step reads every weight but the input embedding (of which
-    it gathers B rows); at S = 1 the MoE products run every expert.  Its
-    bound is those bytes at the card's memory rate."""
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def decode_bound(eng, batch, prompt, new_tokens) -> dict:
+    """What a decode step of a request of ``batch`` x ``prompt`` with
+    ``new_tokens`` must move, at the card's memory rate.
+
+    ``weight_bytes``: every weight once; the input embedding only where
+    the lm_head is that embedding (tied: the head reads all of it), since
+    untied the step gathers B rows of it.  At S = 1 the MoE products run
+    every expert.  ``state_bytes``: the cache and state the step reads
+    and writes, in place: a recurrent state (mLSTM C, n, m and conv
+    window; sLSTM c, n, h, m; RG-LRU conv and h) read and written whole; a
+    self-attention K/V or an MLA cache read up to the step's position and
+    one slot written, at the mean over the request's decode steps (P +
+    n_new / 2 slots read; a window clips it); whisper's cross K/V read
+    whole."""
+    from repro_torch.checkpoint.serialization import _leaf_paths
     from repro_torch.models.params import tree_leaves
-    n_bytes = sum(t.numel() * t.element_size()
-                  for t in tree_leaves(eng.params))
-    emb = eng.params["embed"]["embedding"]
-    n_bytes -= emb.numel() * emb.element_size()
-    return {"weight_bytes": n_bytes,
-            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+    weight = sum(_nbytes(t) for t in tree_leaves(eng.params))
+    if not eng.cfg.tie_embeddings:
+        weight -= _nbytes(eng.params["embed"]["embedding"])
+    slots = prompt + new_tokens / 2
+    state = 0.0
+    for key, t in _leaf_paths(eng._batches[batch].cache):
+        parts = key.split("/")
+        if "cross" in parts:
+            state += _nbytes(t)                     # read whole
+        elif parts[-1] in ("k", "v", "c_kv", "k_rope"):
+            seq = t.shape[t.dim() - (3 if parts[-1] in ("k", "v") else 2)]
+            state += _nbytes(t) / seq * (min(seq, slots) + 1)
+        else:
+            state += 2 * _nbytes(t)                 # read and written
+    return {"weight_bytes": weight, "state_bytes": int(state),
+            "bound_ms": (weight + state) / HBM_BYTES_PER_S * 1e3}
 
 
-def _serve_cell(arch, flash_launches, snapshot_dir=None):
-    """One MoE serve cell: the CLI's round at MOE_SERVE, then the graph
-    checks of ``serve``; the decode step beside its weight-read bound."""
+def _serve_cell(arch, flash_launches, shape=None, snapshot_dir=None):
+    """One serve cell: the CLI's round at ``shape`` (MOE_SERVE by
+    default), then the graph checks of ``serve`` with the CLI's extras;
+    the decode step beside its bound."""
     from repro_torch.configs import get_arch
-    ms = MOE_SERVE
+    from repro_torch.launch.serve import request_extras
+    ms = shape or MOE_SERVE
     row, counts, eng = _serve(arch, ms["batch"], ms["prompt"],
                               ms["new_tokens"], snapshot_dir)
     peak = peak_bytes()
     want = {"flash_attention_fwd": flash_launches, "rglru_scan": 0,
             "quantize_int8": 0, "dequantize_int8": 0}
-    checks = _graph_checks(eng, ms["batch"], ms["prompt"], ms["new_tokens"])
-    bound = decode_bound(eng)
+    checks = _graph_checks(eng, ms["batch"], ms["prompt"], ms["new_tokens"],
+                           request_extras(eng.cfg, ms["batch"]))
+    bound = decode_bound(eng, ms["batch"], ms["prompt"], ms["new_tokens"])
     step_ms = checks["second_request"]["decode_step_ms"]
     ok = (counts == want and row["flash_launches"] == flash_launches
           and _graphs_ok(checks, counts, want)
@@ -1377,7 +1454,7 @@ def phase_serve_mla(card_line):
     free_and_reset_peak()
     ms = MOE_SERVE
     with tempfile.TemporaryDirectory() as snap:
-        ok, eng, fields, counts = _serve_cell(MLA, 0, snap)
+        ok, eng, fields, counts = _serve_cell(MLA, 0, snapshot_dir=snap)
         step = Path(snap) / "step_0000000000"
         valid = ser.validate(step, deep=True)
         plan = plan_summary(step)
@@ -1393,6 +1470,395 @@ def phase_serve_mla(card_line):
          absorbed_vs_expanded=absorbed, cache=cache,
          snapshot={"valid": valid, "n_leaves": plan["n_leaves"],
                    "expected_leaves": want_leaves,
+                   "approx_bytes": plan["approx_bytes"]})
+    return counts
+
+
+# ------------------------------------------------------ xLSTM, whisper
+
+def _held(diff, scale) -> bool:
+    """The reference's 2e-3 where it holds; beyond it, PARITY_TOL of the
+    output's scale (a full-width random stack's outputs grow with depth)."""
+    return diff <= max(REFERENCE_TOL, PARITY_TOL * scale)
+
+
+def xlstm_chunkwise_vs_recurrent(cfg, params, tokens, split) -> dict:
+    """Every block of an xLSTM stack, each from the same input (the
+    chunkwise output of the block before): the chunkwise form over all S
+    tokens against the chunkwise form over the first ``split`` followed by
+    S - split recurrent decode steps.  Per kind: the blocks, the largest
+    difference, the output scale (largest |y|), the fp32 noise floor (the
+    chunkwise output moved by a 1e-7 relative change of its input), the
+    final state's largest difference over its scale, and whether every
+    block is held (``_held``)."""
+    import torch
+    from repro_torch.models import model as lm
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.layers import Policy
+    fp32 = Policy(compute=torch.float32)
+    forms = {"mlstm": (xl.mlstm_apply, xl.mlstm_decode),
+             "slstm": (xl.slstm_apply, xl.slstm_decode)}
+    _, unit, n_units, _ = lm.stack_plan(cfg)
+    s = tokens.shape[1]
+    x = lm._embed_in(cfg, params, tokens, {}, fp32)
+    rows = {}
+    for unit_p in lm._unstack(params["units"], n_units):
+        for i, kind in enumerate(unit):
+            p = unit_p[f"b{i}"]
+            apply, decode = forms[kind]
+            full, full_state = apply(cfg, p, x, fp32)
+            moved, _ = apply(cfg, p, x * (1 + 1e-7), fp32)
+            y, state = apply(cfg, p, x[:, :split], fp32)
+            ys = [y]
+            for t in range(split, s):
+                y, state = decode(cfg, p, x[:, t:t + 1], state, fp32)
+                ys.append(y)
+            diff = float((torch.cat(ys, dim=1) - full).abs().max())
+            scale = float(full.abs().max())
+            state_gap = max(float((state[k] - full_state[k]).abs().max())
+                            / max(float(full_state[k].abs().max()), 1e-30)
+                            for k in full_state)
+            r = rows.setdefault(kind, {"blocks": 0, "max_abs_diff": 0.0,
+                                       "output_scale": 0.0,
+                                       "noise_floor": 0.0,
+                                       "state_diff_over_scale": 0.0,
+                                       "held": True})
+            r["blocks"] += 1
+            r["max_abs_diff"] = max(r["max_abs_diff"], diff)
+            r["output_scale"] = max(r["output_scale"], scale)
+            r["noise_floor"] = max(r["noise_floor"],
+                                   float((moved - full).abs().max()))
+            r["state_diff_over_scale"] = max(r["state_diff_over_scale"],
+                                             state_gap)
+            r["held"] = r["held"] and _held(diff, scale)
+            x = full
+    return rows
+
+
+def _xlstm_cut(cfg, params, tokens, max_seq) -> dict:
+    """End to end at a depth cut: the forward's logits over the cut's
+    tokens against a prefill and teacher-forced decode steps over the
+    same tokens; the greedy tokens of the engine (its graphs on CUDA)
+    against greedy tokens by the forward; the forward's logits on the
+    card against the port's on the CPU."""
+    import torch
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import Policy
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.engine import ServeEngine
+    fp32 = Policy(compute=torch.float32)
+    xp = XLSTM_PARITY
+    s, p, n = xp["cut_seq"], xp["cut_prefill"], xp["greedy"]
+    toks = tokens[:, :s]
+    full = lm.lm_forward(cfg, params, {"tokens": toks}, fp32)[0]
+    moved = dict(params, embed={**params["embed"], "embedding":
+                                params["embed"]["embedding"] * (1 + 1e-7)})
+    noise = float((lm.lm_forward(cfg, moved, {"tokens": toks}, fp32)[0]
+                   - full).abs().max())
+    del moved
+    lg, cache = lm.lm_prefill(cfg, params, toks[:, :p], {}, max_seq, fp32)
+    steps = [lg]
+    for t in range(p, s - 1):
+        lg, cache = lm.lm_decode(cfg, params, cache, toks[:, t:t + 1],
+                                 torch.full((toks.shape[0],), t, device=DEV),
+                                 fp32)
+        steps.append(lg)
+    del cache
+    recurrent = torch.stack(steps, dim=1)               # positions p-1..s-2
+    diff = float((recurrent - full[:, p - 1:s - 1]).abs().max())
+    scale = float(full.abs().max())
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu = lm.lm_forward(cfg, cpu_params, {"tokens": toks.cpu()}, fp32)[0]
+    cpu_diff = float((full.cpu() - cpu).abs().max())
+    del cpu_params, cpu
+    eng = ServeEngine(cfg, params, max_seq=max_seq, policy=fp32, device=DEV)
+    engine_tokens = eng.generate(toks[:, :p].cpu().numpy(), n).tokens
+    seq = toks[:, :p]
+    for _ in range(n):                  # greedy by the chunkwise forward
+        nxt = torch.argmax(lm.lm_forward(cfg, params, {"tokens": seq},
+                                         fp32)[0][:, -1], dim=-1)
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+    forward_tokens = seq[:, p:].cpu().numpy()
+    ctx = torch.cat([toks[:, :p], torch.as_tensor(engine_tokens, device=DEV,
+                                                  dtype=torch.long)], dim=1)
+    logits = lm.lm_forward(cfg, params, {"tokens": ctx}, fp32)[0]
+    flips, bad = _greedy_flips(engine_tokens, forward_tokens,
+                               logits.float().cpu().numpy(), p)
+    del eng
+    return {"layers": cfg.n_layers, "seq": s, "prefill": p,
+            "logits_diff": diff, "logits_scale": scale, "noise_floor": noise,
+            "card_vs_cpu_logits_diff": cpu_diff,
+            "tokens_engine": engine_tokens.tolist(), "tie_flips": flips,
+            "bad_flips": bad,
+            "held": (_held(diff, scale) and _held(cpu_diff, scale)
+                     and not bad)}
+
+
+def phase_serve_parity_xlstm(card_line):
+    """xlstm-1.3b at full width (seeded random weights), fp32, B=1: the
+    chunkwise mLSTM over XLSTM_PARITY["prompt"] tokens (two chunks)
+    against its first chunk and recurrent decode steps, and the sLSTM scan
+    against itself and its decode steps, block by block over all 48
+    blocks; end to end at a one-unit cut (``_xlstm_cut``).  No kernel runs
+    (no TPU kernel computes either block)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as lm
+    from repro_torch.models.params import init_params
+    free_and_reset_peak()
+    xp = XLSTM_PARITY
+    cfg = get_arch(XLSTM)
+    max_seq = xp["prompt"] + 8
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, xp["prompt"])).astype(np.int32)
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=DEV)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        params = init_params(lm.lm_param_defs(cfg, max_seq),
+                             torch.Generator(device=DEV).manual_seed(0), DEV)
+        blocks = xlstm_chunkwise_vs_recurrent(cfg, params, tokens,
+                                              xp["split"])
+        del params
+        free()
+        cut = dataclasses.replace(cfg, n_layers=XLSTM_CUT_LAYERS)
+        params = init_params(lm.lm_param_defs(cut, max_seq),
+                             torch.Generator(device=DEV).manual_seed(0), DEV)
+        end = _xlstm_cut(cut, params, tokens, max_seq)
+        del params
+    sync()
+    launches = _launches()
+    free()
+    ok = (all(r["held"] for r in blocks.values()) and end["held"]
+          and blocks["mlstm"]["blocks"] + blocks["slstm"]["blocks"]
+          == cfg.n_layers and not any(launches.values()))
+    emit("serve-parity-xlstm", ok, card_line, arch=XLSTM, dtype="float32",
+         batch=1, prompt=xp["prompt"], split=xp["split"],
+         cut_layers=XLSTM_CUT_LAYERS,
+         tolerance={"reference": REFERENCE_TOL,
+                    "of_output_scale": PARITY_TOL},
+         blocks=blocks, cut=end, launches=launches, peak_bytes=peak_bytes())
+
+
+def _graphed(fn):
+    """``fn`` captured into its own CUDA graph (after a warm-up on a side
+    stream): the graph's replay."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def _host_ms(fn) -> float:
+    """ms of one call of ``fn`` by the host clock, after a synchronize."""
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def block_times(eng, b, p) -> dict:
+    """The engine's prefill step at B x P (its own graph's replay, and its
+    step called eagerly), and one block of each kind of the stack's unit
+    at that shape (the compute dtype, unit-RMS input), each timed
+    uncaptured (the host clock around one call, every op dispatched from
+    Python) and captured (a CUDA graph's replay, by CUDA events; on the
+    CPU None); each kind's block time times its count of blocks, over the
+    prefill's the same way: its share of the prefill.  All in one place,
+    so both sides of a share see the same host."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as lm
+    cfg = eng.cfg
+    _, unit, n_units, _ = lm.stack_plan(cfg)
+    unit_p = lm._unstack(eng.params["units"], n_units)[0]
+    batch = eng._batches[b]
+    prompt = next(pr for key, pr in eng._prompts.items() if key[0] == (b, p))
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    x = torch.randn((b, p, cfg.d_model), generator=gen,
+                    device=DEV).to(eng.policy.compute)
+    positions = lm._positions(b, p, DEV)
+    kinds = cfg.layer_kinds()
+
+    def timed(fn, graphed=None) -> dict:
+        fn()                                        # warm
+        return {"uncaptured": _host_ms(fn), "captured": None
+                if DEV != "cuda" else cuda_ms(graphed or _graphed(fn))}
+
+    _backends(True)                 # what the CLI selected: its graphs' key
+    try:
+        with torch.inference_mode(), ops.uncounted():
+            graphed = eng._programs(batch, prompt)[0]
+            prefill = timed(lambda: eng._prefill_step(batch, prompt),
+                            graphed if DEV == "cuda" else None)
+    finally:
+        _backends(False)
+    out = {"prefill_ms": prefill}
+    with torch.inference_mode(), ops.uncounted():
+        for i, kind in enumerate(unit):
+            if kind in out:
+                continue
+            ms = timed(lambda i=i, kind=kind: lm.apply_block(
+                cfg, kind, unit_p[f"b{i}"], x, positions, eng.policy))
+            n = kinds.count(kind)
+            out[kind] = {"blocks": n, "block_ms": ms, "share_of_prefill": {
+                way: None if t is None else n * t / prefill[way]
+                for way, t in ms.items()}}
+    return out
+
+
+def phase_serve_xlstm(card_line):
+    """The repro_torch.launch.serve path, xlstm-1.3b at full width, bf16,
+    B=4, prompt 512 (two mLSTM chunks), 32 new tokens: no kernel launch,
+    the graph checks of ``serve``, the decode step beside its bound (the
+    weights and the mLSTM's C, read and written), and each block kind's
+    share of the prefill (``block_times``)."""
+    free_and_reset_peak()
+    xs = XLSTM_SERVE
+    ok, eng, fields, counts = _serve_cell(XLSTM, 0, xs)
+    shares = block_times(eng, xs["batch"], xs["prompt"])
+    del eng
+    free()
+    emit("serve-xlstm", ok, card_line, **fields, block_times=shares)
+    return counts
+
+
+def _whisper_parity() -> dict:
+    """whisper-tiny at full width (seeded random weights), fp32, B=1,
+    prompt WHISPER_PARITY_PROMPT, with the CLI's frames: flash against
+    chunked attention in each decoder block, each from the same input
+    (beside the block's output scale and its fp32 noise floor, the output
+    moved by a 1e-7 relative change of its input);
+    the prefill's flash launches; logits end to end at full depth; greedy
+    tokens of the engine through the kernel against the plain path, a
+    flip tolerated only at a near tie of the plain path's teacher-forced
+    logits."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import request_extras
+    from repro_torch.models import whisper as wh
+    from repro_torch.models.layers import Policy
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    fp32 = Policy(compute=torch.float32)
+    cfg, p, n_new = get_arch(WHISPER), WHISPER_PARITY_PROMPT, 8
+    max_seq = p + n_new + 8
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, p)).astype(np.int32)
+    extras = request_extras(cfg, 1)
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=DEV)
+    dev_extras = {k: torch.as_tensor(v, device=DEV) for k, v in extras.items()}
+    out = {}
+    with torch.inference_mode():
+        params = init_params(wh.whisper_param_defs(cfg, max_seq),
+                             torch.Generator(device=DEV).manual_seed(0), DEV)
+        mem = wh.encode(cfg, params, dev_extras["frames"], fp32)
+        x = wh._dec_in(cfg, params, tokens, fp32)
+        positions = torch.arange(p, device=DEV)[None]
+        diffs, scales, floors = [], [], []
+        for bp in wh._unstack(params["dec_blocks"], cfg.n_layers):
+            y = {}
+            for kernels in (True, False):
+                _backends(kernels)
+                y[kernels] = wh._dec_block(cfg, bp, x, positions, mem, fp32)
+            _backends(False)
+            moved = wh._dec_block(cfg, bp, x * (1 + 1e-7), positions, mem,
+                                  fp32)
+            diffs.append(float((y[True] - y[False]).abs().max()))
+            scales.append(float(y[False].abs().max()))
+            floors.append(float((moved - y[False]).abs().max()))
+            x = y[False]
+        lg = {}
+        for kernels in (True, False):
+            _backends(kernels)
+            ops.reset_launch_counts()
+            lg[kernels] = wh.whisper_prefill(cfg, params, tokens, dev_extras,
+                                             max_seq, fp32)[0]
+            sync()
+            if kernels:
+                out["prefill_launches"] = _launches()["flash_attention_fwd"]
+        _backends(False)
+        eng = ServeEngine(cfg, params, max_seq=max_seq, policy=fp32,
+                          device=DEV)
+        gen = {}
+        for kernels in (True, False):
+            _backends(kernels)
+            gen[kernels] = eng.generate(prompts, n_new, extras=extras).tokens
+        _backends(False)
+        logit_steps, cache = wh.whisper_prefill(cfg, params, tokens,
+                                                dev_extras, max_seq, fp32)
+        steps = [logit_steps]
+        for t in range(n_new - 1):
+            tok = torch.as_tensor(gen[True][:, t:t + 1], dtype=torch.long,
+                                  device=DEV)
+            lgt, cache = wh.whisper_decode(cfg, params, cache, tok,
+                                           torch.full((1,), p + t, device=DEV),
+                                           fp32)
+            steps.append(lgt)
+        flips, bad = _greedy_flips(gen[True], gen[False], torch.stack(
+            steps, dim=1).float().cpu().numpy(), 1)
+        del eng, params, cache
+    out.update({"blocks": len(diffs), "block_max_abs_diff": max(diffs),
+                "block_output_scale": max(scales),
+                "block_noise_floor": max(floors),
+                "logits_diff": float((lg[True] - lg[False]).abs().max()),
+                "logits_finite": bool(torch.isfinite(lg[True]).all()),
+                "tokens_kernels": gen[True].tolist(), "tie_flips": flips,
+                "bad_flips": bad})
+    out["held"] = (out["logits_finite"] and max(diffs) <= PARITY_TOL
+                   and out["logits_diff"] <= PARITY_TOL and not bad
+                   and out["prefill_launches"] == cfg.n_layers)
+    return out
+
+
+def phase_serve_whisper(card_line):
+    """whisper-tiny at full width: the fp32 parity (``_whisper_parity``),
+    then the repro_torch.launch.serve path, bf16, B=4, prompt 128, 32 new
+    tokens, each request with the CLI's frames (4, 1500, 384), the encoder
+    inside the captured prefill: 4 flash launches a request (one a decoder
+    block's self-attention; the encoder's 1500 frames and the
+    cross-attention's keys are no multiple of 128, so they take the
+    chunked path), the graph checks of ``serve``, the decode step beside
+    its bound, and the serving snapshot written and validated, its cross
+    K/V leaves listed."""
+    from repro_torch.checkpoint import serialization as ser
+    from repro_torch.checkpoint.resharding import plan_summary
+    from repro_torch.configs import get_arch
+    free_and_reset_peak()
+    parity = _whisper_parity()
+    free()
+    ws = WHISPER_SERVE
+    cfg = get_arch(WHISPER)
+    with tempfile.TemporaryDirectory() as snap:
+        ok, eng, fields, counts = _serve_cell(WHISPER, cfg.n_layers, ws, snap)
+        step = Path(snap) / "step_0000000000"
+        valid = ser.validate(step, deep=True)
+        plan = plan_summary(step)
+        cross = sorted(k for k in ser.load_manifest(step)["leaves"]
+                       if "cross" in k.split("/"))
+    del eng
+    free()
+    want_leaves = _payload_leaves(WHISPER, ws["batch"],
+                                  ws["prompt"] + ws["new_tokens"] + 8)
+    ok = (ok and parity["held"] and valid and plan["n_leaves"] == want_leaves
+          and cross == ["cache/dec/cross/k", "cache/dec/cross/v"])
+    emit("serve-whisper", ok, card_line, **fields, parity={
+             "dtype": "float32", "batch": 1, "prompt": WHISPER_PARITY_PROMPT,
+             "tolerance": PARITY_TOL, **parity},
+         snapshot={"valid": valid, "n_leaves": plan["n_leaves"],
+                   "expected_leaves": want_leaves, "cross_leaves": cross,
                    "approx_bytes": plan["approx_bytes"]})
     return counts
 
@@ -2217,9 +2683,15 @@ def _time_quant(gen, dequant):
 def flash_paths() -> dict:
     """The flash kernel's shape on each path, (b, h, kv, s, hd, window,
     dtype): bf16 on the serving paths, fp32 on the serve-parity paths."""
-    hy, sm, mo = HYBRID_FLASH_SHAPE, SLICE_SHAPE, MOE_FLASH_SHAPE
+    hy, sm, mo, wh = (HYBRID_FLASH_SHAPE, SLICE_SHAPE, MOE_FLASH_SHAPE,
+                      WHISPER_FLASH_SHAPE)
     return {"serve": (sm["b"], sm["h"], sm["kv"], sm["s"], sm["hd"], 0,
                       "bfloat16"),
+            "serve-whisper": (wh["b"], wh["h"], wh["kv"], wh["s"], wh["hd"],
+                              0, "bfloat16"),
+            "serve-whisper-parity": (1, wh["h"], wh["kv"],
+                                     WHISPER_PARITY_PROMPT, wh["hd"], 0,
+                                     "float32"),
             "serve-moe": (mo["b"], mo["h"], mo["kv"], mo["s"], mo["hd"], 0,
                           "bfloat16"),
             "serve-parity-moe": (1, mo["h"], mo["kv"], MOE_PARITY_PROMPT,
@@ -2375,6 +2847,9 @@ def main() -> int:
         run("serve-parity-moe", phase_serve_parity_moe)
         counts["serve-moe"] = run("serve-moe", phase_serve_moe)
         counts["serve-mla"] = run("serve-mla", phase_serve_mla)
+        run("serve-parity-xlstm", phase_serve_parity_xlstm)
+        counts["serve-xlstm"] = run("serve-xlstm", phase_serve_xlstm)
+        counts["serve-whisper"] = run("serve-whisper", phase_serve_whisper)
         counts["train"] = run("train", phase_train)
         run("train-resume", phase_train_resume)
         counts["checkpoint-remote"] = run("checkpoint-remote",

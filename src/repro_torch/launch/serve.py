@@ -11,8 +11,13 @@ The kernel takes prompts whose length is a multiple of 128; other lengths
 go to the chunked path, as in the reference.  The MoE archs take prompts
 of at most 256 tokens or a multiple of 256 (``models/moe.py``'s groups);
 deepseek-v2-lite's MLA never takes the flash kernel (q head dim 192, v
-128).  The weights are drawn in the compute dtype leaf by leaf, so a
-14-16 B-parameter MoE never holds its fp32 tree beside the cast.  On CUDA
+128).  xlstm-1.3b's mLSTM takes a prompt of at most 256 tokens or a
+multiple of 256 (its chunks) and runs no kernel (no TPU kernel computes
+it); whisper-tiny's requests carry the stub encoder frames (B, 1500,
+d_model) and run the encoder inside the prefill, its decoder
+self-attention through the flash kernel.  The weights are drawn in the
+compute dtype leaf by leaf, so a 14-16 B-parameter MoE never holds its
+fp32 tree beside the cast.  On CUDA
 it also selects the "kernel" recurrence backend for the RG-LRU blocks
 (recurrentgemma): the reference's model always runs its plain
 associative scan and calls the recurrence kernel from nowhere, so
@@ -43,6 +48,20 @@ from repro_torch.models.params import init_params
 from repro_torch.models.rglru import set_recurrence_backend
 from repro_torch.models.registry import get_api
 from repro_torch.serve.engine import ServeEngine
+
+
+def request_extras(cfg, batch: int) -> dict:
+    """The inputs a request carries beside its tokens, as the reference's
+    CLI makes them (ones x 0.1): whisper's stub encoder frames (B, 1500,
+    d_model), a VLM's vision embeddings."""
+    extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = np.ones(
+            (batch, cfg.encoder.n_frames, cfg.d_model), np.float32) * .1
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = np.ones(
+            (batch, cfg.n_vision_tokens, cfg.d_model), np.float32) * .1
+    return extras
 
 
 def main(argv=None) -> list:
@@ -81,10 +100,7 @@ def run(argv=None):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
-    extras = {}
-    if cfg.family == "vlm":
-        extras["vision_embeds"] = np.ones(
-            (args.batch, cfg.n_vision_tokens, cfg.d_model), np.float32) * .1
+    extras = request_extras(cfg, args.batch)
 
     rows = []
     for r in range(args.rounds):

@@ -15,9 +15,13 @@ MLA's q and k have head dim 192 and its v 128, so the flash kernel does
 not take it: its prefill goes through the chunked path, as the
 reference's does.
 
-Left out until their slices land (ROADMAP.md, Queue 1): cross-attention
-(whisper), and the sharded ``expand`` GQA layout (multi-device; on one
-device the reference never takes it).
+Whisper's cross-attention (``cross_attn_forward``) is non-causal over
+the encoder memory; at 1500 frames its keys are no multiple of 128, so it
+takes the chunked path, as the reference's does.
+
+Left out until its slice lands (ROADMAP.md, Queue 1): the sharded
+``expand`` GQA layout (multi-device; on one device the reference never
+takes it).
 """
 from __future__ import annotations
 
@@ -180,6 +184,21 @@ def attn_forward(cfg: ArchConfig, p, x, positions, *, window: int = 0,
     out = gqa_attention(q, k, v, q_positions=pos1d, k_positions=pos1d,
                         window=window, q_chunk=q_chunk, causal=causal)
     return torch.einsum("bshk,hkd->bsd", out, policy.c(p["wo"]))
+
+
+def cross_attn_forward(cfg: ArchConfig, p, x, mem, *, policy=DEFAULT_POLICY):
+    """Cross-attention (whisper decoder): queries from x (B,Sq,D), keys and
+    values from the encoder memory mem (B,Sk,D); non-causal."""
+    c = policy.c
+    q = torch.einsum("bsd,dhk->bshk", x, c(p["wq"]))
+    k = torch.einsum("bsd,dhk->bshk", mem, c(p["wk"]))
+    v = torch.einsum("bsd,dhk->bshk", mem, c(p["wv"]))
+    sq, sk = x.shape[1], mem.shape[1]
+    out = gqa_attention(q, k, v,
+                        q_positions=torch.arange(sq, device=x.device),
+                        k_positions=torch.arange(sk, device=x.device),
+                        causal=False, q_chunk=min(1024, sq))
+    return torch.einsum("bshk,hkd->bsd", out, c(p["wo"]))
 
 
 # --------------------------------------------------------------------------

@@ -8,8 +8,10 @@ Biases are omitted, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -153,3 +155,16 @@ def embed_tokens(cfg, p, tokens, policy=DEFAULT_POLICY):
 def lm_logits(cfg, p, x, policy=DEFAULT_POLICY):
     w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
     return x @ policy.c(w)
+
+
+@functools.lru_cache(maxsize=8)
+def sincos_table(n: int, d: int, device=None):
+    """Fixed sinusoidal embeddings (whisper encoder), (n, d) fp32: computed
+    in numpy float64 and then cast, as the reference's.  Kept per (n, d,
+    device): a captured prefill reads the table its warm-up copied to the
+    card (a copy from the host cannot be captured).  Read-only."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(table.astype(np.float32), device=device)

@@ -1,8 +1,10 @@
-"""Generic LM composition (torch twin of ``repro.models.model``), for the
-"attn", "local_attn", "moe" and "rglru" block kinds: the dense decoder
-stacks, the MoE stacks (qwen2-moe; deepseek-v2-lite, whose attention is
-MLA and whose first layer is a dense prefix block) and the RG-LRU +
-local-attention hybrid (recurrentgemma).
+"""Generic LM composition (torch twin of ``repro.models.model``), for
+every block kind: "attn", "local_attn", "moe", "rglru", "mlstm" and
+"slstm".  That is the dense decoder stacks, the MoE stacks (qwen2-moe;
+deepseek-v2-lite, whose attention is MLA and whose first layer is a dense
+prefix block), the RG-LRU + local-attention hybrid (recurrentgemma) and
+xLSTM (units of 7 mLSTM and 1 sLSTM).  The encoder-decoder is
+``models/whisper.py``.
 
 Every arch is expressed as prefix blocks (list) + a repeated unit (params
 stacked along a leading L dim) + tail.  The reference scans the stacked
@@ -21,25 +23,27 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as att
 from repro_torch.models import rglru as rg
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
                                        apply_norm, embed_defs, embed_tokens,
                                        lm_logits, mlp_defs, norm_defs)
 from repro_torch.models.moe import apply_moe, moe_defs
 from repro_torch.models.params import stack_defs
 
-#: Block kinds of the other families, and the ROADMAP.md item that ports them.
-_NOT_PORTED = {
-    "mlstm": "Queue 1, other families (models/xlstm.py)",
-    "slstm": "Queue 1, other families (models/xlstm.py)",
+#: The recurrent kinds: (defs, apply, decode, state defs) of each.  Their
+#: full apply returns the carry state, which is their decode cache.
+_RECURRENT = {
+    "rglru": (rg.rglru_defs, rg.rglru_apply, rg.rglru_decode,
+              rg.rglru_state_defs),
+    "mlstm": (xl.mlstm_defs, xl.mlstm_apply, xl.mlstm_decode,
+              xl.mlstm_state_defs),
+    "slstm": (xl.slstm_defs, xl.slstm_apply, xl.slstm_decode,
+              xl.slstm_state_defs),
 }
 
 
 def _check_kind(cfg: ArchConfig, kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: ROADMAP.md, "
-            f"{_NOT_PORTED[kind]}")
-    if kind not in ("attn", "local_attn", "moe", "rglru"):
+    if kind not in ("attn", "local_attn", "moe") and kind not in _RECURRENT:
         raise KeyError(kind)
 
 
@@ -85,8 +89,8 @@ def _ff(cfg, kind, p, h, policy):
 
 def block_defs(cfg: ArchConfig, kind: str):
     _check_kind(cfg, kind)
-    if kind == "rglru":
-        return rg.rglru_defs(cfg)
+    if kind in _RECURRENT:
+        return _RECURRENT[kind][0](cfg)
     adefs = att.mla_defs(cfg) if cfg.mla is not None else att.attn_defs(cfg)
     ff = (moe_defs(cfg) if kind == "moe"
           else mlp_defs(cfg, d_ff=_dense_ff(cfg)))
@@ -100,8 +104,8 @@ def apply_block(cfg, kind, p, x, positions, policy=DEFAULT_POLICY):
     aux the MoE load-balance loss (0 for the other kinds)."""
     _check_kind(cfg, kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind == "rglru":
-        x, state = rg.rglru_apply(cfg, p, x, policy)
+    if kind in _RECURRENT:
+        x, state = _RECURRENT[kind][1](cfg, p, x, policy)
         return x, aux, state
     h = apply_norm(cfg, p["ln1"], x, policy)
     if cfg.mla is not None:
@@ -121,26 +125,29 @@ def apply_block(cfg, kind, p, x, positions, policy=DEFAULT_POLICY):
 def block_cache_defs(cfg, kind, batch: int, max_seq: int,
                      dtype=torch.bfloat16):
     _check_kind(cfg, kind)
-    if kind == "rglru":
-        return rg.rglru_state_defs(cfg, batch, dtype)
+    if kind in _RECURRENT:
+        return _RECURRENT[kind][3](cfg, batch, dtype)
     if cfg.mla is not None and kind != "local_attn":
         return att.mla_cache_defs(cfg, batch, max_seq, dtype)
     return att.kv_cache_defs(cfg, batch, max_seq, dtype)  # window-clipped
 
 
 def _write_state(buffers, state):
-    """Copy an rglru block's new state into its cache buffers."""
+    """Copy a recurrent block's new state into its cache buffers (a
+    buffer the block already updated in place is left as it is)."""
     for key, t in state.items():
-        buffers[key].copy_(t)
+        if t is not buffers[key]:
+            buffers[key].copy_(t)
     return buffers
 
 
 def decode_block(cfg, kind, p, x, cache, pos, policy=DEFAULT_POLICY):
     """One-token decode.  Returns (x, cache); the cache is updated in place
-    (an rglru block's new state is copied into its buffers)."""
+    (a recurrent block's new state is copied into its buffers, or written
+    there by the block: mlstm)."""
     _check_kind(cfg, kind)
-    if kind == "rglru":
-        x, state = rg.rglru_decode(cfg, p, x, cache, policy)
+    if kind in _RECURRENT:
+        x, state = _RECURRENT[kind][2](cfg, p, x, cache, policy)
         return x, _write_state(cache, state)
     h = apply_norm(cfg, p["ln1"], x, policy)
     decode = att.mla_decode if cfg.mla is not None else att.attn_decode
@@ -155,7 +162,7 @@ def prefill_block(cfg, kind, p, x, positions, max_cache: int,
     """Full-sequence block that also materializes its decode cache, into
     the buffers ``into`` where given."""
     _check_kind(cfg, kind)
-    if kind == "rglru":
+    if kind in _RECURRENT:
         # the full apply already returns the carry state = decode cache
         x, _, cache = apply_block(cfg, kind, p, x, positions, policy)
         return x, cache if into is None else _write_state(into, cache)
@@ -192,8 +199,8 @@ def lm_param_defs(cfg: ArchConfig, max_seq: int):
 def lm_cache_defs(cfg: ArchConfig, batch: int, max_seq: int,
                   dtype=torch.bfloat16):
     """The decode cache; ``dtype`` is the compute dtype it holds (k, v, the
-    MLA c_kv and k_rope, and the rglru conv window; the rglru h is fp32),
-    which the prefill's own cache has."""
+    MLA c_kv and k_rope, and the rglru and mlstm conv windows; the
+    recurrent states are fp32), which the prefill's own cache has."""
     prefix, unit, n_units, tail = stack_plan(cfg)
 
     def one(k):

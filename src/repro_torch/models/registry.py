@@ -1,5 +1,7 @@
 """Family dispatch (torch twin of ``repro.models.registry``): one API over
-the LM families.  The audio family (whisper) is not ported yet."""
+every architecture, the LM families and the audio encoder-decoder
+(whisper).  ``batch_specs`` and ``batch_logical_axes`` wait for the
+dry-run (ROADMAP.md, Queue 1), their only reader."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -7,6 +9,7 @@ from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as lm
+from repro_torch.models import whisper as wh
 from repro_torch.models.params import param_count
 
 
@@ -21,14 +24,13 @@ class ModelAPI:
 
 _LM_API = ModelAPI(lm.lm_param_defs, lm.lm_forward, lm.lm_cache_defs,
                    lm.lm_prefill, lm.lm_decode)
+_WHISPER_API = ModelAPI(wh.whisper_param_defs, wh.whisper_forward,
+                        wh.whisper_cache_defs, wh.whisper_prefill,
+                        wh.whisper_decode)
 
 
 def get_api(cfg: ArchConfig) -> ModelAPI:
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "the audio family (whisper) is not ported yet: ROADMAP.md, "
-            "Queue 1, other families (models/whisper.py)")
-    return _LM_API
+    return _WHISPER_API if cfg.family == "audio" else _LM_API
 
 
 def count_params(cfg: ArchConfig, max_seq: int = 4096) -> int:

@@ -95,11 +95,14 @@ class ServeEngine:
         """prompts (B, P) equal-length token batch; greedy decode n_new.
         Both clocks are read only after the device has finished; the first
         request of a key also pays its captures, as the reference's first
-        call pays its compile."""
+        call pays its compile.  ``n_new=0`` gives what the reference gives:
+        the prefill's greedy token, (B, 1), and ``pos`` = P + 1."""
         b, p = prompts.shape
-        if n_new < 1 or p + n_new > self.max_seq:
+        n_out = max(n_new, 1)               # the prefill's token, always
+        if n_new < 0 or p + n_out > self.max_seq:
             raise ValueError(f"prompt {p} + {n_new} new tokens: need at "
-                             f"least 1 and at most max_seq {self.max_seq}")
+                             f"least 0 and at most max_seq {self.max_seq} "
+                             f"(the prefill's token included)")
         dev = self.device
         extras = {k: torch.as_tensor(np.asarray(x), device=dev)
                   for k, x in (extras or {}).items()}
@@ -117,7 +120,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         for _ in range(n_new - 1):
             decode()
-        toks = batch.seq[:, p:p + n_new].cpu().numpy().astype(np.int32)
+        toks = batch.seq[:, p:p + n_out].cpu().numpy().astype(np.int32)
         synchronize(dev)
         t_decode = time.perf_counter() - t0
         self.cache, self.pos = batch.cache, batch.pos + 1

@@ -98,6 +98,13 @@ def train(cfg: ArchConfig, *,
         t0 = time.perf_counter()
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in pipe.next_batch().items()}
+        if cfg.family == "audio":
+            # the stub encoder input a whisper batch carries (the
+            # reference's batch_specs: (B, n_frames, d_model)), ones x 0.1
+            # as the serve CLIs give it; the pipeline draws tokens only
+            batch["frames"] = torch.full(
+                (global_batch, cfg.encoder.n_frames, cfg.d_model), 0.1,
+                device=dev)
         state, metrics = step_fn(state, batch)
         if step % log_every == 0 or step == n_steps - 1:
             result.losses.append(float(metrics["loss"]))

@@ -44,10 +44,12 @@ from repro_torch.core import trace as ttrace
 from repro_torch.launch import serve as t_serve
 from repro_torch.models.layers import Policy as TPolicy
 from repro_torch.models.params import is_pm, params_from_numpy, tree_leaves
+from repro_torch.models.params import tree_map as tmap
 from repro_torch.models.registry import get_api as t_get_api
 from repro_torch.serve.engine import ServeEngine as TServeEngine
-from test_torch_serve import (_agree_up_to_ties, _deepseek_setup,
-                              _fp32_forward_logits, _hybrid_setup, _setup)
+from test_torch_serve import (_agree_up_to_ties, _arch_setup,
+                              _deepseek_setup, _fp32_forward_logits,
+                              _hybrid_setup, _setup)
 
 T32 = TPolicy(compute=torch.float32)
 
@@ -594,6 +596,71 @@ def test_serving_snapshot_crosses_packages(tmp_path, setup, prompt_len,
     own, own_logits = _t_continue(t_eng, t_own["cache"], t_own["generated"],
                                   t_own["pos"], 4)
     assert np.array_equal(own, live) and torch.equal(own_logits, live_logits)
+    assert tser.validate(tm.root / "step_0000000001", deep=True)
+
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "whisper-tiny"])
+def test_family_serving_snapshot_crosses_packages(tmp_path, name):
+    """The xLSTM (mLSTM C, n, m and conv; sLSTM c, n, h, m) and whisper
+    (self and cross K/V) serving snapshots: each engine generates 4 tokens
+    under DEFAULT_POLICY (whisper with its stub frames) and snapshots, and
+    each snapshot restores in the other package leaf for leaf, bit for
+    bit.  Each snapshot is then continued by both packages from the same
+    values in fp32 (the cache cast up, the params fp32): greedy tokens
+    agree up to fp32 near ties.  (In bf16 the reduced xLSTM's logits are
+    ~1 from fp32 in either package,
+    test_torch_serve_families.py::test_xlstm_bf16_prefill_error_is_the_references_size,
+    so the bf16 engines are not held to each other's tokens.)"""
+    jc, tc, jp, tp = _arch_setup(name)(32)
+    prompts = np.random.default_rng(1).integers(
+        0, jc.vocab_size, (2, 8)).astype(np.int32)
+    extras = t_serve.request_extras(jc, 2)
+    j_eng = JServeEngine(jc, jp, make_local_mesh(), make_variant("baseline"),
+                         max_seq=32)
+    t_eng = TServeEngine(tc, tp, max_seq=32, device="cpu")
+    j_eng.generate(prompts, 4, extras=extras)
+    t_eng.generate(prompts, 4, extras=extras)
+    jm, tm = _jmgr(tmp_path / "jax"), TManager(tmp_path / "torch")
+    j_eng.snapshot_service(jm, 1)
+    t_eng.snapshot_service(tm, 1)
+    j_snap = _payload(j_eng, j_eng.pos)
+    t_snap = _payload(t_eng, t_eng.pos.to(torch.int32))
+    j_raw, t_raw = _raw_tree(j_snap, jser._leaf_paths), _raw_tree(t_snap)
+    assert {k: v[:2] for k, v in j_raw.items()} == \
+        {k: v[:2] for k, v in t_raw.items()}
+    want = ({"cache/units/b0/C", "cache/units/b7/c"} if name == "xlstm-1.3b"
+            else {"cache/dec/cross/k", "cache/dec/self/v"})
+    assert want <= set(t_raw) and t_raw["pos"][0] == "int32"
+    t_from_j, _ = TManager(jm.root).restore(t_snap, device="cpu")
+    assert _raw_tree(t_from_j) == j_raw
+    j_from_t, _ = _jmgr(tm.root).restore(j_snap)
+    assert _raw_tree(j_from_t, jser._leaf_paths) == t_raw
+
+    japi, j32 = j_get_api(jc), JPolicy(compute=jnp.float32)
+    forward_logits = _fp32_forward_logits(tc, tp, extras)
+    for t_copy, j_copy in ((t_from_j, j_snap), (t_snap, j_from_t)):
+        generated = np.array(j_copy["generated"])
+        pos = np.asarray(j_copy["pos"]) - 1
+        t_cache = tmap(lambda x: x.float().clone(), t_copy["cache"])
+        j_cache = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32),
+                               j_copy["cache"])
+        t_tok = torch.as_tensor(generated[:, -1:], dtype=torch.long)
+        j_tok = jnp.asarray(generated[:, -1:], jnp.int32)
+        t_toks, j_toks = [], []
+        with torch.inference_mode():
+            for i in range(4):
+                lg, t_cache = t_eng.api.decode(
+                    tc, tp, t_cache, t_tok, torch.as_tensor(pos + i), T32)
+                t_tok = torch.argmax(lg, dim=-1)[:, None]
+                jl, j_cache = japi.decode(jc, jp, j_cache, j_tok,
+                                          jnp.asarray(pos + i, jnp.int32), j32)
+                j_tok = jnp.argmax(jl, axis=-1)[:, None].astype(jnp.int32)
+                t_toks.append(t_tok.numpy())
+                j_toks.append(np.asarray(j_tok))
+        ctx = np.concatenate([prompts, generated], axis=1)
+        _agree_up_to_ties(np.concatenate(t_toks, axis=1),
+                          np.concatenate(j_toks, axis=1), ctx,
+                          forward_logits)
     assert tser.validate(tm.root / "step_0000000001", deep=True)
 
 

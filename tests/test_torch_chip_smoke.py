@@ -23,6 +23,7 @@ from repro_torch.kernels import rglru as rk
 from repro_torch.kernels.ref import (ref_dequantize_int8, ref_flash_attention,
                                      ref_quantize_int8, ref_rglru)
 from repro_torch.launch import serve
+from repro_torch.models import xlstm as t_xl
 from repro_torch.models.attention import set_attention_backend
 from repro_torch.models.rglru import set_recurrence_backend
 
@@ -67,12 +68,29 @@ def smoke(monkeypatch):
                               name="smoke-moe-hd64", head_dim=64)
     mla = dataclasses.replace(reduce_for_smoke(ARCHS["deepseek-v2-lite-16b"]),
                               name="smoke-mla")
-    for cfg in (tiny, hybrid, moe, mla):
+    xlstm = dataclasses.replace(reduce_for_smoke(ARCHS["xlstm-1.3b"]),
+                                name="smoke-xlstm")
+    whisper = dataclasses.replace(reduce_for_smoke(ARCHS["whisper-tiny"]),
+                                  name="smoke-whisper-hd64", head_dim=64)
+    for cfg in (tiny, hybrid, moe, mla, xlstm, whisper):
         monkeypatch.setitem(ARCHS, cfg.name, cfg)
     monkeypatch.setattr(mod, "ARCH", tiny.name)
     monkeypatch.setattr(mod, "HYBRID", hybrid.name)
     monkeypatch.setattr(mod, "MOE", moe.name)
     monkeypatch.setattr(mod, "MLA", mla.name)
+    monkeypatch.setattr(mod, "XLSTM", xlstm.name)
+    monkeypatch.setattr(mod, "WHISPER", whisper.name)
+    # chunks of 32: the parity's 64 tokens cross one, as 512 cross one of 256
+    monkeypatch.setattr(t_xl, "CHUNK", 32)
+    monkeypatch.setattr(mod, "XLSTM_PARITY", dict(prompt=64, split=32,
+                                                  cut_seq=32, cut_prefill=24,
+                                                  greedy=4))
+    monkeypatch.setattr(mod, "XLSTM_SERVE",
+                        dict(batch=2, prompt=64, new_tokens=4))
+    monkeypatch.setattr(mod, "WHISPER_SERVE",
+                        dict(batch=2, prompt=128, new_tokens=4))
+    monkeypatch.setattr(mod, "WHISPER_FLASH_SHAPE",
+                        dict(b=2, h=4, kv=4, s=128, hd=64))
     monkeypatch.setattr(mod, "MOE_SERVE",
                         dict(batch=2, prompt=256, new_tokens=4))
     monkeypatch.setattr(mod, "MOE_FLASH_SHAPE",
@@ -140,6 +158,8 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
                                             "serve-parity-hybrid": 0.0,
                                             "serve-moe": 0.0,
                                             "serve-parity-moe": 0.0,
+                                            "serve-whisper": 0.0,
+                                            "serve-whisper-parity": 0.0,
                                             "train": 0.0},
                     "rglru_scan": {"serve-hybrid": 0.0,
                                    "serve-parity-hybrid": 0.0,
@@ -154,11 +174,15 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     smoke.phase_serve_parity_moe(card)
     counts["serve-moe"] = smoke.phase_serve_moe(card)
     counts["serve-mla"] = smoke.phase_serve_mla(card)
+    smoke.phase_serve_parity_xlstm(card)
+    counts["serve-xlstm"] = smoke.phase_serve_xlstm(card)
+    counts["serve-whisper"] = smoke.phase_serve_whisper(card)
     counts["train"] = smoke.phase_train(card)
     smoke.phase_train_resume(card)
     counts["checkpoint-remote"] = smoke.phase_checkpoint_remote(card)
     # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks;
-    # the tiny qwen 2 moe blocks, deepseek's MLA never takes flash;
+    # the tiny qwen 2 moe blocks, deepseek's MLA never takes flash; xLSTM
+    # runs no kernel, the tiny whisper 2 decoder blocks take flash;
     # training launches flash twice a layer (remat), 10 steps; the remote
     # phase's three legs one step each, and the hybrid leg one prefill
     assert counts == {
@@ -170,6 +194,10 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
                       "quantize_int8": 0, "dequantize_int8": 0},
         "serve-mla": {"flash_attention_fwd": 0, "rglru_scan": 0,
                       "quantize_int8": 0, "dequantize_int8": 0},
+        "serve-xlstm": {"flash_attention_fwd": 0, "rglru_scan": 0,
+                        "quantize_int8": 0, "dequantize_int8": 0},
+        "serve-whisper": {"flash_attention_fwd": 2, "rglru_scan": 0,
+                          "quantize_int8": 0, "dequantize_int8": 0},
         "train": {"flash_attention_fwd": 60, "rglru_scan": 0,
                   "quantize_int8": 0, "dequantize_int8": 0},
         "checkpoint-remote": {"flash_attention_fwd": 3 * 6 + 2,
@@ -184,10 +212,11 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     line = smoke.kernels_line(errs, counts, timing)["kernels"]
     assert [k["name"] for k in line] == ["flash_attention_fwd", "rglru_scan",
                                          "quantize_int8", "dequantize_int8"]
-    assert [k["launches"] for k in line] == [87, 12, 0, 0]
+    assert [k["launches"] for k in line] == [89, 12, 0, 0]
     assert line[0]["launches_by_path"] == {"serve": 3, "serve-hybrid": 2,
                                            "serve-moe": 2, "serve-mla": 0,
-                                           "train": 60,
+                                           "serve-xlstm": 0,
+                                           "serve-whisper": 2, "train": 60,
                                            "checkpoint-remote": 20}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -209,15 +238,18 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     assert [ln["phase"] for ln in lines] == [
         "kernels", "serve-parity", "serve", "checkpoint",
         "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid",
-        "serve-parity-moe", "serve-moe", "serve-mla", "train",
-        "train-resume", "checkpoint-remote", "timing"]
+        "serve-parity-moe", "serve-moe", "serve-mla", "serve-parity-xlstm",
+        "serve-xlstm", "serve-whisper", "train", "train-resume",
+        "checkpoint-remote", "timing"]
     assert all(ln["ok"] for ln in lines)
     phase = {ln["phase"]: ln for ln in lines}
     # the smollm snapshot: k and v of the stacked cache, pos, generated
     assert phase["serve"]["snapshot"]["n_leaves"] == 4
-    for name in ("serve", "serve-hybrid", "serve-moe", "serve-mla"):
+    for name in ("serve", "serve-hybrid", "serve-moe", "serve-mla",
+                 "serve-xlstm", "serve-whisper"):
         _check_graph_fields(phase[name])
     _check_moe_phases(phase, smoke)
+    _check_family_phases(phase, smoke)
     assert phase["snapshot-hybrid"]["capture_s"] == 0.0
     ckpt = phase["checkpoint"]
     assert ckpt["leaves_equal"] and ckpt["resave"]["last_bytes_written"] == 0
@@ -280,6 +312,7 @@ def _check_moe_phases(phase, smoke):
     for name in ("serve-moe", "serve-mla"):
         bound = phase[name]["decode_bound"]
         assert 0 < bound["bound_ms"] and bound["weight_bytes"] > 0
+        assert bound["state_bytes"] > 0          # the K/V or MLA cache read
         assert bound["share_of_bound"] == pytest.approx(
             bound["bound_ms"] / phase[name]["second_request"]["decode_step_ms"])
     mla = phase["serve-mla"]
@@ -291,6 +324,89 @@ def _check_moe_phases(phase, smoke):
     assert mla["cache"]["compressed_bytes"] < mla["cache"]["expanded_bytes"]
     assert mla["snapshot"]["valid"]
     assert mla["snapshot"]["n_leaves"] == 2 * 2 + 2
+
+
+def _check_family_phases(phase, smoke):
+    """serve-parity-xlstm: every block of the tiny xLSTM (14 mLSTM and 2
+    sLSTM) held, the chunkwise form over two chunks against one chunk and
+    recurrent steps, end to end at the one-unit cut, card against CPU
+    (here both the CPU); serve-xlstm: the sLSTM and mLSTM blocks' share of
+    the prefill, the state a decode step reads and writes; serve-whisper:
+    its fp32 parity (2 decoder blocks, 2 flash launches), the snapshot's
+    cross K/V."""
+    parity = phase["serve-parity-xlstm"]
+    blocks = parity["blocks"]
+    assert (blocks["mlstm"]["blocks"], blocks["slstm"]["blocks"]) == (14, 2)
+    assert all(r["held"] and r["max_abs_diff"] <= smoke.REFERENCE_TOL
+               for r in blocks.values())
+    cut = parity["cut"]
+    assert cut["layers"] == 8 and cut["held"] and not cut["bad_flips"]
+    assert cut["logits_diff"] <= smoke.REFERENCE_TOL
+    assert cut["card_vs_cpu_logits_diff"] == 0.0    # both on the CPU here
+    assert len(cut["tokens_engine"][0]) == 4
+    assert not any(parity["launches"].values())
+    xlstm = phase["serve-xlstm"]
+    assert xlstm["launches"] == {k: 0 for k in xlstm["launches"]}
+    times = xlstm["block_times"]
+    assert times["prefill_ms"]["uncaptured"] > 0
+    assert times["prefill_ms"]["captured"] is None              # no card
+    assert (times["mlstm"]["blocks"], times["slstm"]["blocks"]) == (14, 2)
+    for kind in ("mlstm", "slstm"):
+        assert times[kind]["block_ms"]["uncaptured"] > 0
+        assert times[kind]["block_ms"]["captured"] is None     # no card
+        assert times[kind]["share_of_prefill"]["uncaptured"] > 0
+    bound = xlstm["decode_bound"]
+    assert bound["state_bytes"] > 0 and bound["weight_bytes"] > 0
+    whisper = phase["serve-whisper"]
+    assert whisper["parity"]["held"] and whisper["parity"]["blocks"] == 2
+    assert whisper["parity"]["prefill_launches"] == 2
+    assert whisper["launches"]["flash_attention_fwd"] == 2
+    assert whisper["snapshot"]["valid"]
+    assert whisper["snapshot"]["cross_leaves"] == ["cache/dec/cross/k",
+                                                   "cache/dec/cross/v"]
+    # k, v of the self and the cross cache, stacked; pos, generated
+    assert whisper["snapshot"]["n_leaves"] == 4 + 2
+
+
+def test_chip_smoke_decode_bound_counts_weights_and_state(smoke):
+    """decode_bound on tiny engines: the weights once, the input
+    embedding left out unless tied (whisper's lm_head reads it all); the
+    state the step moves: an xLSTM block's C, n, m and conv window read
+    and written, a K/V cache read up to P + n_new/2 slots and one slot
+    written, whisper's cross K/V read whole."""
+    import numpy as np
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.models.registry import get_api
+    from repro_torch.serve.engine import ServeEngine
+
+    def engine(name, b, p, max_seq, **extras):
+        cfg = ARCHS[name]
+        params = init_params(get_api(cfg).param_defs(cfg, max_seq),
+                             torch.Generator().manual_seed(0), "cpu")
+        eng = ServeEngine(cfg, params, max_seq=max_seq, device="cpu")
+        eng.generate(np.zeros((b, p), np.int32), 2, extras=extras)
+        return eng
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    eng = engine("smoke-xlstm", 2, 8, 16)
+    bound = smoke.decode_bound(eng, 2, 8, 4)
+    emb = eng.params["embed"]["embedding"]
+    assert bound["weight_bytes"] == nbytes(eng.params) - emb.numel() * 2
+    assert bound["state_bytes"] == 2 * nbytes(eng._batches[2].cache)
+    assert bound["bound_ms"] == pytest.approx(
+        (bound["weight_bytes"] + bound["state_bytes"]) / 3.35e12 * 1e3)
+    cfg = ARCHS["smoke-whisper-hd64"]
+    eng = engine(cfg.name, 2, 8, 16, frames=np.zeros(
+        (2, cfg.encoder.n_frames, cfg.d_model), np.float32))
+    assert cfg.tie_embeddings
+    bound = smoke.decode_bound(eng, 2, 8, 4)
+    assert bound["weight_bytes"] == nbytes(eng.params)
+    cache = eng._batches[2].cache["dec"]
+    slot = cache["self"]["k"].numel() // 16 * 2          # bf16, 16 slots
+    assert bound["state_bytes"] == (nbytes(cache["cross"])
+                                    + 2 * slot * (8 + 4 / 2 + 1))
 
 
 def _check_remote_phase(remote):

@@ -22,10 +22,12 @@ from repro.models.params import init_params as j_init_params
 from repro.models.registry import get_api as j_get_api
 from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.configs import reduce_for_smoke as t_reduce_for_smoke
+from repro_torch.launch.serve import request_extras
 from repro_torch.models import attention as t_att
 from repro_torch.models import layers as t_layers
 from repro_torch.models import rglru as t_rg
 from repro_torch.models import xlstm as t_xl
+from repro_torch.models.params import init_params as t_init_params
 from repro_torch.models.params import params_from_numpy
 from repro_torch.models.registry import count_params as t_count_params
 from repro_torch.models.registry import get_api as t_get_api
@@ -36,6 +38,8 @@ DENSE = ["granite-34b", "llava-next-34b", "smollm-135m", "stablelm-12b",
          "yi-9b"]
 HYBRID = "recurrentgemma-9b"
 MOE = ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]
+XLSTM, WHISPER = "xlstm-1.3b", "whisper-tiny"
+ALL = DENSE + [HYBRID] + MOE + [XLSTM, WHISPER]
 # Logits of the smoke stacks are O(1); fp32 with another summation order
 # agrees to ~1e-5, so 1e-4 leaves a margin without hiding a real fault.
 LOGIT_ATOL = 1e-4
@@ -210,7 +214,29 @@ def test_lm_prefill_decode_match_jax():
         _close(tl, jl, LOGIT_ATOL)
 
 
-@pytest.mark.parametrize("name", DENSE + [HYBRID] + MOE)
+def _extras(cfg, b):
+    """The inputs beside the tokens, as test_models_smoke.py::_batch and
+    the serve CLIs make them: whisper's stub frames, a VLM's vision
+    embeddings (ones x 0.1)."""
+    return {k: torch.from_numpy(v)
+            for k, v in request_extras(cfg, b).items()}
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_forward_shapes_no_nan(name):
+    """Twin of test_models_smoke.py::test_forward_shapes_no_nan: the
+    reduced config of every arch, under the default bf16 policy."""
+    _, tc = _cfgs(name)
+    api = t_get_api(tc)
+    params = t_init_params(api.param_defs(tc, 32),
+                           torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(_rng(1).integers(0, tc.vocab_size, (2, 32)))
+    logits, aux = api.forward(tc, params, {"tokens": toks, **_extras(tc, 2)})
+    assert logits.shape == (2, 32, tc.vocab_size)
+    assert torch.isfinite(logits.float()).all() and torch.isfinite(aux)
+
+
+@pytest.mark.parametrize("name", ALL)
 def test_prefill_decode_matches_forward(name):
     """Twin of test_models_smoke.py::test_prefill_decode_matches_forward,
     on the port alone (same atol 2e-3; for the MoE archs the reference's
@@ -221,8 +247,9 @@ def test_prefill_decode_matches_forward(name):
     B, S, P = 2, 32, 24
     _, tp = _params(reduce_for_smoke(ARCHS[name]), S)
     toks = torch.from_numpy(_rng(1).integers(0, tc.vocab_size, (B, S)))
-    full, _ = api.forward(tc, tp, {"tokens": toks}, T32)
-    lg, cache = api.prefill(tc, tp, toks[:, :P], {}, S, T32)
+    extras = _extras(tc, B)
+    full, _ = api.forward(tc, tp, {"tokens": toks, **extras}, T32)
+    lg, cache = api.prefill(tc, tp, toks[:, :P], extras, S, T32)
     errs = [float((lg - full[:, P - 1]).abs().max())]
     for t in range(P, S):
         lg, cache = api.decode(tc, tp, cache, toks[:, t:t + 1],
@@ -253,11 +280,13 @@ def test_lm_forward_flash_backend_matches_jax_pallas():
     _close(tl, jl, LOGIT_ATOL)
 
 
-def test_count_params_matches_jax_and_unported_families_raise():
+def test_count_params_matches_jax():
+    """Every arch of the repo, all ten in the port."""
     from repro.models.registry import active_param_ratio as j_ratio
     from repro.models.registry import count_params as j_count_params
     from repro_torch.models.registry import active_param_ratio as t_ratio
-    for name in DENSE + [HYBRID] + MOE:
+    assert sorted(ALL) == sorted(T_ARCHS) == sorted(ARCHS)
+    for name in ALL:
         assert t_count_params(T_ARCHS[name]) == j_count_params(ARCHS[name])
         assert t_ratio(T_ARCHS[name]) == j_ratio(ARCHS[name])
     assert t_count_params(T_ARCHS["smollm-135m"]) == T_ARCHS["smollm-135m"].n_params()
@@ -265,10 +294,12 @@ def test_count_params_matches_jax_and_unported_families_raise():
     # JAX count_params on the CPU; deepseek's dense first layer is 10944 wide
     assert t_count_params(T_ARCHS["qwen2-moe-a2.7b"]) == 14_315_636_736
     assert t_count_params(T_ARCHS["deepseek-v2-lite-16b"]) == 15_706_484_224
+    # xLSTM's mLSTM head dim is proj_factor * d_model / n_heads = 1024, not
+    # the config's head_dim 512; whisper's learned pos table is max_seq wide
+    assert t_count_params(T_ARCHS[XLSTM]) == 2_020_321_280
+    assert t_count_params(T_ARCHS[WHISPER]) == 38_020_992
+    assert t_count_params(T_ARCHS[WHISPER], max_seq=4096) == 38_020_992
     assert t_ratio(T_ARCHS["smollm-135m"]) == 1.0
-    for name in ["xlstm-1.3b", "whisper-tiny"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_count_params(T_ARCHS[name])
 
 
 def test_windowed_attn_prefill_decode_ring_buffer_matches_jax():

@@ -156,10 +156,14 @@ def _hybrid_setup(max_seq):
     return jc, tc, jp, tp
 
 
-def _fp32_forward_logits(tc, tp):
+def _fp32_forward_logits(tc, tp, extras=None):
+    """fp32 teacher-forced logits (B, S, V) of a prompt + generated
+    sequence through the port's forward, with the request's ``extras``
+    (numpy, e.g. whisper's frames)."""
     def forward_logits(seq):
-        out, _ = t_get_api(tc).forward(
-            tc, tp, {"tokens": torch.from_numpy(seq.astype(np.int64))}, T32)
+        batch = {"tokens": torch.from_numpy(seq.astype(np.int64)),
+                 **{k: torch.from_numpy(v) for k, v in (extras or {}).items()}}
+        out, _ = t_get_api(tc).forward(tc, tp, batch, T32)
         return out.numpy()
     return forward_logits
 
@@ -312,12 +316,14 @@ def _requests(setup):
     return [(2, 10, 9, 1), (2, 10, 9, 2), (1, 20, 6, 3)]
 
 
-def _jax_fp32_greedy(jc, jp, prompts, n_new, max_seq):
+def _jax_fp32_greedy(jc, jp, prompts, n_new, max_seq, extras=None):
     """Greedy tokens of the JAX model's own fp32 prefill and decode: what
     the JAX engine runs once it passes its policy on (ROADMAP.md, Queue 3),
-    as test_hybrid_serve_engine_tokens_match_jax_fp32_greedy runs it."""
+    as test_hybrid_serve_engine_tokens_match_jax_fp32_greedy runs it; the
+    prefill takes the request's ``extras`` (numpy)."""
     japi, j32 = j_get_api(jc), JPolicy(compute=jnp.float32)
-    prefill = jax.jit(lambda p, t: japi.prefill(jc, p, t, {}, max_seq, j32))
+    jx = {k: jnp.asarray(v) for k, v in (extras or {}).items()}
+    prefill = jax.jit(lambda p, t: japi.prefill(jc, p, t, jx, max_seq, j32))
     decode = jax.jit(lambda p, c, t, pos: japi.decode(jc, p, c, t, pos, j32))
     logits, cache = prefill(jp, jnp.asarray(prompts))
     tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
