@@ -110,20 +110,37 @@ one JSON line each; any failure exits non-zero:
                  K/V leaves
   train          the repro_torch.train.loop.train path, smollm-135m at full
                  width, bf16, the flash backend, remat on, B=8, seq 2048, 10
-                 steps: the other main path; 60 flash launches a step (the
-                 forward and the remat recompute), the loss falling, step
-                 time, tokens/s, 6NT against the bf16 peak, peak memory;
-                 flash gradients (kernel forward, plain backward) against
-                 the plain version's at the training shape, one step's
-                 gradients with the kernel against the plain path at a
-                 2-layer cut, in fp32, and the first full-width step's new
-                 params, m and v against a plain fp64 AdamW fed the same
-                 gradients
+                 steps: the other main path, each step the replay of one
+                 CUDA graph (GraphedTrainStep: the first step eager, then
+                 captured once); 60 flash launches a step (the forward and
+                 the remat recompute) counted through the replays, the
+                 loss falling, step time, tokens/s, 6NT against the bf16
+                 peak, peak memory with the graph's pool; 3 graphed steps
+                 against 3 eager ones (the pure step and the in-place one)
+                 from one state under deterministic algorithms, losses and
+                 every TrainState leaf bit for bit; the eager step against
+                 a replay: step time, capture_s, and one of each under the
+                 profiler; flash gradients (kernel forward, plain backward)
+                 against the plain version's at the training shape, one
+                 step's gradients with the kernel against the plain path
+                 at a 2-layer cut, in fp32, and the first full-width step's
+                 new params, m and v against a plain fp64 AdamW fed the
+                 same gradients
   train-resume   under deterministic algorithms: a crash after step 7,
                  resumed from the step-4 checkpoint, ends on the same last
-                 loss as an uninterrupted run; then the full-width fp32
-                 TrainState (params, m, v, the uint32 rng key) saved and
-                 restored onto the card bit for bit, with its times
+                 loss as an uninterrupted run, both runs through the graph
+                 (the resumed one captured again over the restored state);
+                 then the full-width fp32 TrainState (params, m, v, the
+                 uint32 rng key) saved and restored onto the card bit for
+                 bit, with its times
+  train-families the loop's graphed step for every other family it trains,
+                 at full published widths and a depth cut, B=4, seq 256:
+                 recurrentgemma-9b (5 layers; recurrence on its plain scan,
+                 0 RG-LRU launches), qwen2-moe-a2.7b and deepseek-v2-lite-16b
+                 (2), xlstm-1.3b (8), whisper-tiny (whole); each 3 graphed
+                 steps against 3 eager in-place ones from one state under
+                 deterministic algorithms, losses, launches and every
+                 TrainState leaf equal
   checkpoint-remote
                  the full-width TrainState after 2 steps through the
                  manager in three legs: its own directory, one chunk
@@ -273,6 +290,10 @@ REMOTE_SERVERS = "processes"
 # the train step's fp32 AdamW against an fp64 one on the same gradients:
 # fp32 rounding of the clip norm over 134.5 M squares and of each update
 ADAMW_TOL = 1e-5
+# graphed against eager train steps, bit for bit, from one state
+GRAPH_CHECK_STEPS = 3
+# train-families: S <= 256, as one MoE group and one mLSTM chunk need
+FAMILY_TRAIN = dict(batch=4, seq=256)
 
 
 class PhaseFailed(Exception):
@@ -318,6 +339,12 @@ def free_and_reset_peak() -> None:
 def peak_bytes():
     import torch
     return torch.cuda.max_memory_allocated() if DEV == "cuda" else None
+
+
+def reserved_bytes():
+    """The most the caching allocator held, CUDA graphs' pools included."""
+    import torch
+    return torch.cuda.max_memory_reserved() if DEV == "cuda" else None
 
 
 def cuda_ms(fn) -> float:
@@ -2034,37 +2061,165 @@ def _train(cfg, **kw):
                  seed=t["seed"], log_every=1, device=DEV, **kw)
 
 
-def _profile_train_step(cfg) -> dict:
-    """One more step of the main path's configuration, after a warm-up
-    step, under the profiler: where the step's device time goes."""
+def _train_batch(cfg, host_batch, b) -> dict:
+    """A pipeline batch on the card, as the loop makes it: a whisper batch
+    carries the stub frames, ones x 0.1."""
+    import torch
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in host_batch.items()}
+    if cfg.family == "audio":
+        batch["frames"] = torch.full(
+            (b, cfg.encoder.n_frames, cfg.d_model), 0.1, device=DEV)
+    return batch
+
+
+def _step_kw(seq) -> dict:
+    t = TRAIN
+    return dict(base_lr=t["lr"], warmup=t["warmup"], total_steps=t["steps"],
+                max_seq=seq)
+
+
+def _train_step_before_after(cfg) -> dict:
+    """The main path's step at full width from one state and batch: eager
+    (the pure step, every op dispatched from Python: the numbers before)
+    and as the loop runs it (on CUDA the replay of its graph: after).
+    Each: the step time (median of GRAPH_CHECK_STEPS steps after a
+    warm-up, which for the graph is its capture; each step ended by the
+    loss read) and one more step under the profiler; the graph's
+    capture_s."""
+    import statistics
+
     import torch
     from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.loop import make_loop_step
     from repro_torch.train.state import make_train_state
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import GraphedTrainStep, make_train_step
     t = TRAIN
-    step = make_train_step(cfg, base_lr=t["lr"], warmup=t["warmup"],
-                           total_steps=t["steps"], max_seq=t["seq"])
     state = make_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
                              t["seq"], device=DEV)
-    batch = {k: torch.as_tensor(v, device=DEV) for k, v in TokenPipeline(
-        cfg.vocab_size, t["batch"], t["seq"]).next_batch().items()}
+    batch = _train_batch(cfg, TokenPipeline(
+        cfg.vocab_size, t["batch"], t["seq"]).next_batch(), t["batch"])
+    kw, out = _step_kw(t["seq"]), {}
     _train_backend(True)
     try:
-        state, _ = step(state, batch)
-        sync()
-        out = profile_step(lambda: step(state, batch))
+        for name, step in (("eager", make_train_step(cfg, **kw)),
+                           ("graphed", make_loop_step(cfg, DEV, **kw))):
+            state, _ = step(state, batch)
+            sync()
+            times = []
+            for _ in range(GRAPH_CHECK_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                float(metrics["loss"])
+                times.append(time.perf_counter() - t0)
+            out[name] = {"step_s": statistics.median(times),
+                         "step_s_all": times,
+                         "profile": profile_step(lambda: step(state, batch))}
+            if isinstance(step, GraphedTrainStep):
+                out[name]["capture_s"] = step.capture_s
     finally:
         _train_backend(False)
-    del state
+    del state, step
+    free()
     return out
+
+
+def _graphed_vs_eager(cfg, b, seq, eager=("inplace",)) -> dict:
+    """GRAPH_CHECK_STEPS steps of the loop's step (on CUDA its graph; on the
+    CPU the pure step) against as many of each ``eager`` kind ("pure":
+    make_train_step; "inplace": make_train_step_, run eagerly), each run
+    from the same seeded state and batches under deterministic algorithms
+    (an op that has no deterministic version warns and is listed): every
+    loss, the launches, and after the last step every TrainState leaf,
+    bit for bit.  An eager run's final state goes to the host before the
+    next run starts, and each of its leaves comes back to the card to be
+    compared with the graphed run's, so one state is on the card at a time
+    (the hybrid's 5-layer cut's is 38.7 GB).  The counts are set to 0 just
+    before each run and read just after."""
+    import warnings
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.loop import make_loop_step
+    from repro_torch.train.state import make_train_state
+    from repro_torch.train.step import (GraphedTrainStep, make_train_step,
+                                        make_train_step_)
+    kw = _step_kw(seq)
+
+    def inplace():
+        step_ = make_train_step_(cfg, **kw)
+        return lambda state, batch: (state, step_(state, batch))
+
+    makers = {"pure": lambda: make_train_step(cfg, **kw), "inplace": inplace}
+    makers = {k: makers[k] for k in eager}
+    makers["graphed"] = lambda: make_loop_step(cfg, DEV, **kw)
+    pipe = TokenPipeline(cfg.vocab_size, b, seq, seed=TRAIN["seed"])
+    batches = [_train_batch(cfg, pipe.next_batch(), b)
+               for _ in range(GRAPH_CHECK_STEPS)]
+    runs, host, leaves_equal = {}, {}, {}
+    _train_backend(True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, make in makers.items():
+                state = make_train_state(
+                    cfg, torch.Generator(device=DEV).manual_seed(0), seq,
+                    device=DEV)
+                step = make()
+                ops.reset_launch_counts()          # the run starts here
+                losses, times = [], []
+                for batch in batches:
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch)
+                    losses.append(float(metrics["loss"]))
+                    times.append(time.perf_counter() - t0)
+                runs[name] = {"losses": losses, "launches": _launches(),
+                              "step_s": times}      # ... and ends here
+                if isinstance(step, GraphedTrainStep):
+                    runs[name].update(captures=step.captures,
+                                      capture_s=step.capture_s)
+                del step, metrics
+                free()
+                if name != "graphed":
+                    host[name] = [x.cpu() for x in tree_leaves(state)]
+                else:
+                    leaves_equal = {k: True for k in host}
+                    for i, x in enumerate(tree_leaves(state)):
+                        for k, want in host.items():
+                            leaves_equal[k] &= (
+                                x.dtype == want[i].dtype
+                                and torch.equal(x, want[i].to(x.device)))
+                del state
+                free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _train_backend(False)
+    del host
+    graphed = runs["graphed"]
+    losses_equal = all(r["losses"] == graphed["losses"] for r in runs.values())
+    launches_equal = all(r["launches"] == graphed["launches"]
+                         for r in runs.values())
+    captured = graphed.get("captures", 0) == (1 if DEV == "cuda" else 0)
+    return {"steps": GRAPH_CHECK_STEPS, "batch": b, "seq": seq,
+            "runs": runs, "losses_equal": losses_equal,
+            "leaves_equal": leaves_equal, "launches_equal": launches_equal,
+            "nondeterministic_ops": sorted({
+                str(w.message).split(".")[0] for w in caught
+                if "deterministic" in str(w.message)}),
+            "equal": (losses_equal and launches_equal and captured
+                      and all(leaves_equal.values()))}
 
 
 def phase_train(card_line):
     """The training path at full width: smollm-135m, bf16, the flash
-    backend, remat on, TRAIN["steps"] steps through train.loop.train with
-    every count set to 0 just before and read just after.  Beside it: the
-    flash gradients at the training shape, and one step's gradients with
-    the kernel against the plain path at a depth cut."""
+    backend, remat on, TRAIN["steps"] steps through train.loop.train (on
+    CUDA one graph, captured once and replayed) with every count set to 0
+    just before and read just after.  Beside it: the graph against the
+    eager steps bit for bit, the eager step against a replay, the flash
+    gradients at the training shape, and one step's gradients with the
+    kernel against the plain path at a depth cut."""
     import statistics
 
     from repro_torch.configs import get_arch
@@ -2086,8 +2241,11 @@ def phase_train(card_line):
     finally:
         _train_backend(False)
     peak = peak_bytes()
-    profile = _profile_train_step(cfg)
+    reserved = reserved_bytes()
     free()
+    before_after = _train_step_before_after(cfg)
+    graph_check = _graphed_vs_eager(cfg, TRAIN["batch"], TRAIN["seq"],
+                                    eager=("pure", "inplace"))
     step_s = statistics.median(res.step_s[1:])
     tokens = TRAIN["batch"] * TRAIN["seq"]
     n_params = count_params(cfg, TRAIN["seq"])
@@ -2097,21 +2255,28 @@ def phase_train(card_line):
           and all(math.isfinite(x) for x in res.losses)
           and max(flash_gaps.values()) <= TOL["bfloat16"]
           and cut["finite"] and cut["grad_gap"] <= PARITY_TOL
-          and update["ok"] and counts["rglru_scan"] == 0)
+          and update["ok"] and counts["rglru_scan"] == 0
+          and graph_check["equal"]
+          and res.captures == (1 if DEV == "cuda" else 0))
     emit("train", ok, card_line, arch=ARCH, dtype="bfloat16", remat=True,
          batch=TRAIN["batch"], seq=TRAIN["seq"], steps=res.steps_run,
          lr=TRAIN["lr"], warmup=TRAIN["warmup"], step_s=step_s,
          step_s_all=res.step_s, tok_per_s=tokens / step_s,
+         captures=res.captures, capture_s=res.capture_s,
+         step_s_before=before_after["eager"]["step_s"],
+         step_s_after=before_after["graphed"]["step_s"],
          model_flops_6nt=6 * n_params * tokens, n_params=n_params,
          mfu_6nt=6 * n_params * tokens / step_s / BF16_FLOP_PER_S,
-         peak_bytes=peak, flash_launches=counts["flash_attention_fwd"],
+         peak_bytes=peak, reserved_bytes=reserved,
+         flash_launches=counts["flash_attention_fwd"],
          flash_launches_per_step=per_step, expected_per_step=want,
          launches=counts, first_loss=res.losses[0], last_loss=res.losses[-1],
          losses=res.losses, flash_grad_gap_at_train_shape=flash_gaps,
          flash_grad_tolerance=TOL["bfloat16"],
          step_grads_at_cut={"cut_layers": CUT_LAYERS, "dtype": "float32",
                             **cut, "tolerance": PARITY_TOL},
-         step_update_vs_fp64_adamw=update, step_profile=profile)
+         step_update_vs_fp64_adamw=update, graphed_vs_eager=graph_check,
+         step_before_after=before_after)
     return counts
 
 
@@ -2152,7 +2317,9 @@ def phase_train_resume(card_line):
     """A crash after step TRAIN["fail_at"], resumed from the last
     checkpoint, against an uninterrupted run, under deterministic
     algorithms (CUBLAS_WORKSPACE_CONFIG is set before CUDA is first
-    touched): the last losses must be equal.  An op that has no
+    touched): the last losses must be equal.  On CUDA every run goes
+    through the loop's graph, and the resumed run captures it again over
+    the restored state.  An op that has no
     deterministic version warns (warn_only) and is listed.  Then the
     TrainState's own save and restore times."""
     import warnings
@@ -2190,7 +2357,9 @@ def phase_train_resume(card_line):
     resumed_at = TRAIN["fail_at"] // TRAIN["ckpt_every"] * TRAIN["ckpt_every"]
     free()
     roundtrip = _train_state_roundtrip(cfg)
+    captures = 1 if DEV == "cuda" else 0
     ok = (crashed and res.resumed_from == resumed_at
+          and ref.captures == res.captures == captures
           and res.steps_run == TRAIN["steps"] - resumed_at and diff == 0.0
           and roundtrip["leaves_equal"]
           and roundtrip["rng_dtype"] == "torch.uint32")
@@ -2200,9 +2369,46 @@ def phase_train_resume(card_line):
          steps_after_resume=res.steps_run, last_loss=res.losses[-1],
          uninterrupted_last_loss=ref.losses[-1], last_loss_diff=diff,
          uninterrupted_losses=ref.losses, resumed_losses=res.losses,
+         captures={"uninterrupted": ref.captures, "resumed": res.captures},
+         resumed_capture_s=res.capture_s,
          nondeterministic_ops=nondeterministic, crash_run_s=crash_s,
          resume_run_s=resume_s, resume_ckpt_stats=res.ckpt_stats,
          train_state=roundtrip, peak_bytes=peak_bytes())
+
+
+def phase_train_families(card_line):
+    """The loop's step (on CUDA its graph) for every other family the port
+    trains, each at its full published widths and a depth cut (the
+    hybrid's recurrence on its plain scan, as launch/train.py leaves it),
+    bf16, the flash backend, remat on, FAMILY_TRAIN's batch: each family's
+    graphed run against its eager in-place run (_graphed_vs_eager).  The
+    path's launches are the graphed runs' summed; the hybrid launches no
+    RG-LRU kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import count_params
+    cuts = {HYBRID: HYBRID_CUT_LAYERS, MOE: MOE_CUT_LAYERS,
+            MLA: MOE_CUT_LAYERS, XLSTM: XLSTM_CUT_LAYERS, WHISPER: None}
+    b, seq = FAMILY_TRAIN["batch"], FAMILY_TRAIN["seq"]
+    rows = {}
+    for arch, cut in cuts.items():
+        cfg = get_arch(arch)
+        if cut is not None:
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        free_and_reset_peak()
+        t0 = time.perf_counter()
+        check = _graphed_vs_eager(cfg, b, seq)
+        rows[arch] = {"cut_layers": cut, "n_params": count_params(cfg, seq),
+                      **check, "peak_bytes": peak_bytes(),
+                      "seconds": time.perf_counter() - t0}
+    counts = {k: sum(r["runs"]["graphed"]["launches"][k]
+                     for r in rows.values()) for k in _launches()}
+    ok = (all(r["equal"] for r in rows.values())
+          and rows[HYBRID]["runs"]["graphed"]["launches"]["rglru_scan"] == 0)
+    emit("train-families", ok, card_line, dtype="bfloat16", remat=True,
+         batch=b, seq=seq, launches=counts, families=rows)
+    return counts
 
 
 # ---------------------------------------------------- remote chunk stores
@@ -2852,6 +3058,8 @@ def main() -> int:
         counts["serve-whisper"] = run("serve-whisper", phase_serve_whisper)
         counts["train"] = run("train", phase_train)
         run("train-resume", phase_train_resume)
+        counts["train-families"] = run("train-families",
+                                       phase_train_families)
         counts["checkpoint-remote"] = run("checkpoint-remote",
                                           phase_checkpoint_remote)
         free_and_reset_peak()

@@ -10,7 +10,13 @@ switch the card would train through no kernel.  The forward then runs the
 hand-written kernel (once a layer, and again in the remat recompute), and
 the backward autograd through its plain version, as the reference's
 custom_vjp.  The recurrence backend stays "scan", the differentiable plain
-version (the RG-LRU kernel has no backward, in either package).
+version (the RG-LRU kernel has no backward, in either package).  On CUDA
+each step is the replay of one CUDA graph that holds the whole step (the
+microbatches' forwards, the backward, the clip and AdamW) and writes the
+new TrainState into the old one's tensors, the counterpart of the
+reference's jitted, state-donating step (``train/step.py::
+GraphedTrainStep``); its first step runs eagerly and is then captured.
+On the CPU each step is the pure, eager step.
 Auto-resumes from the newest valid checkpoint in ``--ckpt-dir``, written
 by either package.  Prints the reference's two JSON lines.
 ``--variant`` and ``--model-parallel`` wait for the port's multi-device

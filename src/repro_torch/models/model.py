@@ -255,7 +255,10 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
     With ``remat`` and autograd recording, each unit runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
     unit body): the backward recomputes the unit's forward, the flash
-    kernel included, so a training step launches it twice a layer."""
+    kernel included, so a training step launches it twice a layer.  It
+    stashes no RNG state (``preserve_rng_state=False``): no forward of the
+    port draws a random number, and a CUDA graph's capture of the step
+    need not read the generator's state."""
     prefix, unit, n_units, tail = stack_plan(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -276,7 +279,8 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
 
     for unit_p in _unstack(params["units"], n_units):
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(unit_body, x, unit_p, use_reentrant=False)
+            x, a = checkpoint(unit_body, x, unit_p, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             x, a = unit_body(x, unit_p)
         aux = aux + a

@@ -83,7 +83,8 @@ def whisper_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
                     remat: bool = True):
     """batch: frames (B,F,D), tokens (B,S).  Returns (logits, aux=0).  With
     ``remat`` and autograd recording, each decoder block runs under
-    ``torch.utils.checkpoint``, as the reference checkpoints its body."""
+    ``torch.utils.checkpoint``, as the reference checkpoints its body (no
+    RNG state stashed: nothing here draws one, as ``lm_forward`` says)."""
     mem = encode(cfg, params, batch["frames"], policy)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -92,7 +93,7 @@ def whisper_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
     for p in _unstack(params["dec_blocks"], cfg.n_layers):
         if remat and torch.is_grad_enabled():
             x = checkpoint(_dec_block, cfg, p, x, positions, mem, policy,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             x = _dec_block(cfg, p, x, positions, mem, policy)
     x = apply_norm(cfg, params["final"], x, policy)

@@ -11,6 +11,14 @@ RUN -> (every ckpt_every steps) QUIESCE/DRAIN -> SNAPSHOT -> RESUME
 
 The checkpoint is the reference's payload in the reference's format, so
 a run that crashed in either package resumes in the other.
+
+The step (``make_loop_step``): on CUDA a ``GraphedTrainStep``, the
+reference's jitted, state-donating step (``repro/train/loop.py:64``) as
+one CUDA graph a step that writes the new state into the old one's
+tensors; on the CPU the pure step.  The batch crosses from the host
+outside the graph.  A save between two replays is sound because
+``CheckpointManager.save`` copies the state to the host before it returns;
+a resumed run restores new tensors, and the step captures again over them.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import Policy
 from repro_torch.train.state import make_train_state, train_state_template
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import GraphedTrainStep, make_train_step
 
 #: the reference records its rules and mesh in the meta; the port runs the
 #: baseline layout on one device
@@ -45,6 +53,24 @@ class TrainResult:
     #: wall seconds of each step run; the step's loss read (every step with
     #: ``log_every=1``) waits for the device
     step_s: List[float] = field(default_factory=list)
+    #: CUDA graphs captured and the seconds their captures took (0 on the
+    #: CPU); the first step of a run includes its capture
+    captures: int = 0
+    capture_s: float = 0.0
+
+
+def _use_graphs(dev: torch.device) -> bool:
+    return dev.type == "cuda"
+
+
+def make_loop_step(cfg: ArchConfig, device, **step_kw):
+    """The step the loop runs on ``device``, ``(state, batch) -> (state,
+    metrics)``: a ``GraphedTrainStep`` on CUDA, else the pure
+    ``make_train_step``; ``step_kw`` are ``make_train_step``'s."""
+    dev = resolve_device(device)
+    if _use_graphs(dev):
+        return GraphedTrainStep(cfg, device=dev, **step_kw)
+    return make_train_step(cfg, **step_kw)
 
 
 def train(cfg: ArchConfig, *,
@@ -69,9 +95,10 @@ def train(cfg: ArchConfig, *,
     from the last one."""
     t_start = time.time()
     dev = resolve_device(device)
-    step_fn = make_train_step(cfg, accum_steps=accum_steps, base_lr=base_lr,
-                              warmup=warmup, policy=policy, max_seq=seq_len,
-                              total_steps=n_steps, remat=remat)
+    step_fn = make_loop_step(cfg, dev, accum_steps=accum_steps,
+                             base_lr=base_lr, warmup=warmup, policy=policy,
+                             max_seq=seq_len, total_steps=n_steps,
+                             remat=remat)
 
     result = TrainResult()
     mgr = None
@@ -123,5 +150,8 @@ def train(cfg: ArchConfig, *,
     if mgr is not None:
         mgr.wait()
         result.ckpt_stats = dict(mgr.stats)
+    if isinstance(step_fn, GraphedTrainStep):
+        result.captures, result.capture_s = (step_fn.captures,
+                                             step_fn.capture_s)
     result.wall_s = time.time() - t_start
     return result

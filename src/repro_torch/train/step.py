@@ -1,8 +1,13 @@
 """The train step (torch twin of ``repro.train.step``).
 
-The returned step function is a pure (state, batch) -> (state, metrics)
-map over trees of tensors, as the reference's: it builds a new state and
-leaves its input as it was.  The reference attaches shardings here; the
+``make_train_step`` returns a pure (state, batch) -> (state, metrics) map
+over trees of tensors, as the reference's: it builds a new state and
+leaves its input as it was.  ``make_train_step_`` returns the same step
+written into its state: every leaf of the TrainState gets its new value in
+place, bit for bit the pure step's.  ``GraphedTrainStep`` captures that
+in-place step as one CUDA graph and replays it, the counterpart of the
+reference's ``jax.jit(step_fn, donate_argnums=(0,))``
+(``repro/train/loop.py:64``).  The reference attaches shardings here; the
 port runs on one device, so there is no mesh or rules argument (as in the
 serve CLI), and ``make_serve_fns`` and ``dryrun_spec`` are left out:
 serving goes through ``serve/engine.py``, and the dry-run is ROADMAP.md,
@@ -10,13 +15,22 @@ Queue 1, item 7.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import time
+
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels import ops
+from repro_torch.models.attention import get_attention_backend
 from repro_torch.models.layers import DEFAULT_POLICY, Policy
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.registry import get_api
-from repro_torch.optim.adamw import AdamWCfg, adamw_update, cosine_schedule
+from repro_torch.models.rglru import get_recurrence_backend
+from repro_torch.optim.adamw import (AdamWCfg, adamw_update, adamw_update_,
+                                     const_f32, cosine_schedule)
 
 
 def softmax_xent(logits, targets):
@@ -72,7 +86,7 @@ def loss_and_grads(cfg: ArchConfig, params, batch, *,
         gsum = tree_unflatten(gsum, [s + d for s, d in
                                      zip(tree_leaves(gsum), tree_leaves(g))])
         lsum, asum = lsum + l, asum + x
-    div = torch.tensor(float(a), dtype=torch.float32, device=dev)
+    div = const_f32(a, lsum)
     return lsum / div, asum / div, tree_map(lambda g: g / div, gsum)
 
 
@@ -117,3 +131,135 @@ def make_train_step(cfg: ArchConfig, *,
         return new_state, metrics
 
     return train_step
+
+
+def make_train_step_(cfg: ArchConfig, *,
+                     accum_steps: int = 1,
+                     policy: Policy = DEFAULT_POLICY,
+                     base_lr: float = 3e-4,
+                     warmup: int = 100,
+                     total_steps: int = 10000,
+                     adamw: AdamWCfg = AdamWCfg(),
+                     remat: bool = True,
+                     master_fp32: bool = False,
+                     max_seq: int = 4096):
+    """``make_train_step``'s step written into its state: returns
+    ``step_(state, batch) -> metrics``.  The params, ``m``, ``v``,
+    ``count``, ``master`` (under master_fp32), ``step`` and
+    ``data_cursor`` get their new values in their own tensors, bit for bit
+    the pure step's; the tree and its tensors stay the same objects.  It
+    copies nothing from the host once its constants exist (its first run
+    makes them), so it can be captured."""
+    lr_fn = cosine_schedule(base_lr, warmup, total_steps)
+
+    def train_step_(state, batch):
+        params, opt = state["params"], state["opt"]
+        loss, aux, grads = loss_and_grads(cfg, params, batch, policy=policy,
+                                          remat=remat,
+                                          accum_steps=accum_steps)
+        lr = lr_fn(state["step"])
+        if master_fp32:
+            om = adamw_update_(opt["master"], grads, opt, lr, adamw)
+            with torch.no_grad():
+                for p, m in zip(tree_leaves(params),
+                                tree_leaves(opt["master"])):
+                    p.copy_(m.to(torch.bfloat16))
+        else:
+            om = adamw_update_(params, grads, opt, lr, adamw)
+        state["step"].add_(1)
+        state["data_cursor"].add_(1)
+        return {"loss": loss, "aux_loss": aux, "lr": lr, **om}
+
+    return train_step_
+
+
+class GraphedTrainStep:
+    """The train step as one CUDA graph over the caller's TrainState:
+    ``step(state, batch) -> (state, metrics)``, the same ``state`` object,
+    its tensors holding the new values.
+
+    The first call of a key runs ``make_train_step_`` eagerly on a side
+    stream (a real step: it builds the kernels, sets up cuBLAS on that
+    stream and makes the step's constants; its launches count), then
+    captures the same step on that stream, so that the autograd backward
+    runs on the capture stream and its gradients live in the graph's
+    pool.  The capture runs nothing: its launches are taken off the
+    counters, and each replay adds them (``ops.CountedGraph``).  Later
+    calls copy the batch into static buffers and replay.  ``metrics`` are
+    the graph's static outputs: read them before the next call.
+
+    The key is the batch's shapes and dtypes, the attention and recurrence
+    backends and the deterministic-algorithms flag, and the graph holds
+    the addresses of the state's leaves: a new key, or any leaf rebound (a
+    restore, another state), drops the graph and captures again.  A
+    capture that fails raises; nothing falls back to the eager step."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda", **step_kw):
+        self.device = resolve_device(device)
+        self._step = make_train_step_(cfg, **step_kw)
+        #: seconds spent capturing (the first, eager step not included)
+        self.capture_s = 0.0
+        self.captures = 0
+        self._graph = None              # ops.CountedGraph
+        self._key = None
+        self._leaves = []
+        self._batch = {}                # static inputs
+        self._metrics = None            # static outputs
+        self._stream = None
+
+    def __call__(self, state, batch):
+        leaves = tree_leaves(state)
+        key = (tuple(sorted((k, tuple(v.shape), v.dtype)
+                            for k, v in batch.items())),
+               get_attention_backend(), get_recurrence_backend(),
+               torch.are_deterministic_algorithms_enabled())
+        if (self._graph is None or key != self._key
+                or len(leaves) != len(self._leaves)
+                or any(a is not b for a, b in zip(leaves, self._leaves))):
+            return state, self._capture(state, batch, key, leaves)
+        for k, v in batch.items():
+            self._batch[k].copy_(v)
+        self._graph.replay()
+        return state, self._metrics
+
+    @contextlib.contextmanager
+    def _on_side_stream(self):
+        """The block runs on the side stream, after the current stream's
+        queued work and before its next (off CUDA: as it is)."""
+        if self.device.type != "cuda":
+            yield
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            yield
+        current.wait_stream(self._stream)
+
+    def _record(self, step):
+        """``step`` captured into a new CUDA graph on the side stream:
+        (graph, its outputs)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream):
+            out = step()
+        return graph, out
+
+    def _capture(self, state, batch, key, leaves):
+        # drop the old graph, its static tensors and its pool first
+        self._graph = self._metrics = None
+        self._batch = {k: v.clone() for k, v in batch.items()}
+        self._key, self._leaves = key, leaves
+        step = functools.partial(self._step, state, self._batch)
+        with self._on_side_stream():
+            metrics = step()                    # the first step, eagerly
+        t0 = time.perf_counter()
+        recorded = []
+        launches = ops.capture_launches(
+            lambda: recorded.extend(self._record(step)))
+        synchronize(self.device)
+        self.capture_s += time.perf_counter() - t0
+        self.captures += 1
+        graph, self._metrics = recorded
+        self._graph = ops.CountedGraph(graph, launches)
+        return metrics

@@ -6,6 +6,7 @@ checked on the card, by chip_smoke.py's kernels phase."""
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -105,6 +106,9 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "TRAIN", dict(batch=2, seq=128, steps=10, lr=1e-3,
                                            warmup=2, ckpt_every=4, fail_at=7,
                                            seed=0))
+    # 128 tokens: flash's multiple, a length the MoE groups and the
+    # 32-token xLSTM chunks divide
+    monkeypatch.setattr(mod, "FAMILY_TRAIN", dict(batch=2, seq=128))
     monkeypatch.setattr(mod, "cuda_ms", lambda fn: (fn(), 1.0)[1])
     monkeypatch.setattr(mod, "REMOTE_SERVERS", "threads")
 
@@ -179,11 +183,14 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     counts["serve-whisper"] = smoke.phase_serve_whisper(card)
     counts["train"] = smoke.phase_train(card)
     smoke.phase_train_resume(card)
+    counts["train-families"] = smoke.phase_train_families(card)
     counts["checkpoint-remote"] = smoke.phase_checkpoint_remote(card)
     # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks;
     # the tiny qwen 2 moe blocks, deepseek's MLA never takes flash; xLSTM
     # runs no kernel, the tiny whisper 2 decoder blocks take flash;
-    # training launches flash twice a layer (remat), 10 steps; the remote
+    # training launches flash twice a layer (remat), 10 steps; the
+    # families' 3 graphed steps: the hybrid's 5-layer cut 1 local_attn, the
+    # tiny qwen 2 blocks, the tiny whisper 2 decoder blocks; the remote
     # phase's three legs one step each, and the hybrid leg one prefill
     assert counts == {
         "serve": {"flash_attention_fwd": 3, "rglru_scan": 0,
@@ -200,6 +207,9 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
                           "quantize_int8": 0, "dequantize_int8": 0},
         "train": {"flash_attention_fwd": 60, "rglru_scan": 0,
                   "quantize_int8": 0, "dequantize_int8": 0},
+        "train-families": {"flash_attention_fwd": 3 * 2 * (1 + 2 + 2),
+                           "rglru_scan": 0, "quantize_int8": 0,
+                           "dequantize_int8": 0},
         "checkpoint-remote": {"flash_attention_fwd": 3 * 6 + 2,
                               "rglru_scan": 6, "quantize_int8": 0,
                               "dequantize_int8": 0}}
@@ -212,11 +222,12 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     line = smoke.kernels_line(errs, counts, timing)["kernels"]
     assert [k["name"] for k in line] == ["flash_attention_fwd", "rglru_scan",
                                          "quantize_int8", "dequantize_int8"]
-    assert [k["launches"] for k in line] == [89, 12, 0, 0]
+    assert [k["launches"] for k in line] == [119, 12, 0, 0]
     assert line[0]["launches_by_path"] == {"serve": 3, "serve-hybrid": 2,
                                            "serve-moe": 2, "serve-mla": 0,
                                            "serve-xlstm": 0,
                                            "serve-whisper": 2, "train": 60,
+                                           "train-families": 30,
                                            "checkpoint-remote": 20}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -240,7 +251,7 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
         "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid",
         "serve-parity-moe", "serve-moe", "serve-mla", "serve-parity-xlstm",
         "serve-xlstm", "serve-whisper", "train", "train-resume",
-        "checkpoint-remote", "timing"]
+        "train-families", "checkpoint-remote", "timing"]
     assert all(ln["ok"] for ln in lines)
     phase = {ln["phase"]: ln for ln in lines}
     # the smollm snapshot: k and v of the stacked cache, pos, generated
@@ -265,12 +276,75 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     assert train["tok_per_s"] == pytest.approx(256 / train["step_s"])
     assert max(train["flash_grad_gap_at_train_shape"].values()) == 0.0
     assert train["step_grads_at_cut"]["grad_gap"] <= smoke.PARITY_TOL
+    _check_train_graph_fields(train)
     resume = phase["train-resume"]
     assert (resume["resumed_from"], resume["steps_after_resume"]) == (4, 6)
     assert resume["last_loss_diff"] == 0.0
     assert resume["train_state"]["leaves_equal"]
     assert resume["train_state"]["rng_dtype"] == "torch.uint32"
+    assert resume["captures"] == {"uninterrupted": 0, "resumed": 0}
+    _check_train_families(phase["train-families"], smoke)
     _check_remote_phase(phase["checkpoint-remote"])
+
+
+def _check_train_graph_fields(train):
+    """The train line's graph fields, as the CPU runs them: the loop is
+    eager there (no capture), so the graphed-vs-eager check holds the pure
+    step's run against the pure and the in-place eager runs; the eager
+    step and the loop's step each timed and profiled."""
+    assert train["captures"] == 0 and train["capture_s"] == 0.0
+    assert train["reserved_bytes"] is None
+    check = train["graphed_vs_eager"]
+    assert check["equal"] and check["losses_equal"] and check["launches_equal"]
+    assert check["leaves_equal"] == {"pure": True, "inplace": True}
+    assert set(check["runs"]) == {"pure", "inplace", "graphed"}
+    runs = check["runs"]
+    assert check["steps"] == len(runs["graphed"]["losses"]) == 3
+    assert runs["graphed"]["launches"]["flash_attention_fwd"] == 3 * 6
+    assert check["nondeterministic_ops"] == []
+    ways = train["step_before_after"]
+    assert set(ways) == {"eager", "graphed"}
+    assert train["step_s_before"] == ways["eager"]["step_s"] > 0
+    assert train["step_s_after"] == ways["graphed"]["step_s"] > 0
+    for way in ways.values():
+        assert len(way["step_s_all"]) == 3
+        assert way["profile"]["wall_s"] > 0 and way["profile"]["top"]
+
+
+def _check_train_families(line, smoke):
+    """train-families: every family's graphed run (eager here) against its
+    eager in-place run, losses, launches and leaves equal; the hybrid's 0
+    RG-LRU launches; each family at its depth cut."""
+    fams = line["families"]
+    assert list(fams) == [smoke.HYBRID, smoke.MOE, smoke.MLA, smoke.XLSTM,
+                          smoke.WHISPER]
+    assert [f["cut_layers"] for f in fams.values()] == [5, 2, 2, 8, None]
+    for f in fams.values():
+        assert f["equal"] and f["leaves_equal"] == {"inplace": True}
+        assert f["steps"] == 3 and (f["batch"], f["seq"]) == (2, 128)
+        assert all(map(math.isfinite, f["runs"]["graphed"]["losses"]))
+    assert fams[smoke.HYBRID]["runs"]["graphed"]["launches"][
+        "rglru_scan"] == 0
+    assert line["launches"]["flash_attention_fwd"] == 30
+
+
+def test_chip_smoke_failed_train_capture_fails_the_phase(smoke, monkeypatch):
+    """A capture that fails in the loop's graphed step raises out of the
+    phase: nothing falls back to the eager step, and no phase catches it
+    (``main`` catches only ``PhaseFailed``, and exits non-zero on either).
+    Driven on the CPU with the graphed path selected and a capture that
+    fails."""
+    from repro_torch.train import loop
+    from repro_torch.train.step import GraphedTrainStep
+
+    def fail(self, step):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(loop, "_use_graphs", lambda dev: True)
+    monkeypatch.setattr(GraphedTrainStep, "_record", fail)
+    with pytest.raises(RuntimeError, match="stream is capturing"):
+        smoke.phase_train_families("cpu rehearsal, 0 W")
+    assert not torch.are_deterministic_algorithms_enabled()
 
 
 def _check_graph_fields(line):

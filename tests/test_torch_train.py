@@ -35,12 +35,13 @@ from repro_torch.configs import reduce_for_smoke as t_reduce_for_smoke
 from repro_torch.data.pipeline import TokenPipeline as TPipeline
 from repro_torch.launch import train as t_launch_train
 from repro_torch.models.layers import Policy as TPolicy
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train.loop import train as t_train
 from repro_torch.train.state import (make_train_state, train_state_from_numpy,
                                      train_state_template)
-from repro_torch.train.step import loss_and_grads, make_train_step
+from repro_torch.train.step import (loss_and_grads, make_train_step,
+                                    make_train_step_)
 
 J32 = JPolicy(compute=jnp.float32)
 T32 = TPolicy(compute=torch.float32)
@@ -253,7 +254,8 @@ def _jax_loss_and_grads(jc, params, batch, accum):
                          / accum, *grads))
 
 
-@pytest.mark.parametrize("mode", ["plain", "accum2", "master_fp32"])
+@pytest.mark.parametrize("mode", ["plain", "accum2", "master_fp32",
+                                  "inplace"])
 @pytest.mark.parametrize("name", ["smollm-135m", HYBRID] + MOE
                          + [XLSTM, WHISPER])
 def test_train_step_matches_reference(name, mode):
@@ -264,7 +266,9 @@ def test_train_step_matches_reference(name, mode):
     params and their gradients are bf16: each gradient may round to the
     neighbouring bf16 value (2^-8 relative).  The step itself: the new
     state's tree, dtypes, counters and rng equal the reference step's, and
-    its metrics agree."""
+    its metrics agree.  "inplace" is the plain case through
+    ``make_train_step_``, which writes the new state into a copy of the
+    crossed state's tensors."""
     jc, tc = _cfgs(name)
     accum = 2 if mode == "accum2" else 1
     master = mode == "master_fp32"
@@ -293,10 +297,16 @@ def test_train_step_matches_reference(name, mode):
                            else torch.bfloat16)
         _leaf_close(t, j, rtol)
 
-    t_step = make_train_step(tc, accum_steps=accum, policy=T32, base_lr=1e-3,
-                             warmup=2, master_fp32=master, max_seq=S)
-    t_new, tm = t_step(tstate, {k: torch.from_numpy(v)
-                                for k, v in batch.items()})
+    t_kw = dict(accum_steps=accum, policy=T32, base_lr=1e-3, warmup=2,
+                master_fp32=master, max_seq=S)
+    t_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if mode == "inplace":
+        t_new = tree_map(torch.clone, tstate)
+        leaves = tree_leaves(t_new)
+        tm = make_train_step_(tc, **t_kw)(t_new, t_batch)
+        assert all(a is b for a, b in zip(tree_leaves(t_new), leaves))
+    else:
+        t_new, tm = make_train_step(tc, **t_kw)(tstate, t_batch)
     np.testing.assert_allclose(float(tm["loss"]), j_loss, rtol=GRAD_RTOL)
     # the step builds a new state and leaves its input as it was
     assert int(tstate["step"]) == 0
