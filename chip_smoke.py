@@ -45,6 +45,22 @@ one JSON line each; any failure exits non-zero:
                  CheckpointManager: save, wait, restore onto the card,
                  bit-equal leaves; an unchanged re-save writes 0 bytes; the
                  stage times, bytes and codec
+  elastic        full-width smollm-135m's fp32 params (seed 0, a CPU
+                 generator): a 4-rank CPU gloo world (child processes)
+                 lays them out on a (2, 2) (data, model) mesh by
+                 DEFAULT_RULES and saves them across its ranks (each
+                 window once: the windows per leaf, save seconds and bytes
+                 per rank); elastic_restore onto this process's 1-rank
+                 mesh on the card, every leaf bit-equal to the same tree
+                 built here, the manifest's source world 4 devices,
+                 restore_s beside the plain restore's; the engine
+                 (mesh and rules) serves the restored tree, bf16, B=4,
+                 prompt 128, 32 new tokens through its graphs: 30 flash
+                 launches, tokens and last logits bit-equal to the
+                 never-checkpointed tree's; then the card's tree saved and
+                 restored into a 2-rank CPU world under (1, 2) baseline
+                 and (2, 1) fsdp: each rank's shard its resolve_spec
+                 window of the tree, bit for bit
   serve-parity-hybrid
                  full-width recurrentgemma-9b (seeded random weights), fp32,
                  B=1, prompt 2560 (past the 2048 window): kernels vs plain
@@ -285,6 +301,11 @@ TRAIN = dict(batch=8, seq=2048, steps=10, lr=1e-3, warmup=2, ckpt_every=4,
 # each storage leg (the number of chunk servers it runs); the servers are
 # processes started through the port's CLI, or "threads" in this process
 PRE_STEPS = 2
+# the elastic phase: the world that saves and its mesh, the world that
+# restores the card's tree, the request served from the restored tree
+ELASTIC = dict(ranks=4, mesh=(2, 2), reverse_ranks=2, batch=4, prompt=128,
+               new_tokens=32, world_timeout_s=300)
+CORRUPT_RANK = None          # a rank whose restored shard is corrupted
 REMOTE_LEGS = {"local": 0, "remote": 1, "sharded": 3}
 REMOTE_SERVERS = "processes"
 # the train step's fp32 AdamW against an fp64 one on the same gradients:
@@ -1159,6 +1180,242 @@ def phase_checkpoint(card_line):
          param_bytes=n_bytes, codec=codec, save_s=save_s, save=save,
          restore_s=restore_s, restore=restore, leaves_equal=equal,
          resave_s=resave_s, resave=resave, peak_bytes=peak_bytes())
+
+
+# ------------------------------------------------------------------ elastic
+
+# The children of the elastic phase's CPU worlds (``launch.mesh.run_world``:
+# ``python -c`` processes on this host, a file store, no port).  Each
+# rebuilds the phase's params from the same CPU seed; ``ARGS`` is
+# prepended as a JSON string.
+_ELASTIC_CHILD = """
+import json, os, pickle, sys, time
+import torch
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.distributed.elastic import choose_mesh, elastic_restore
+from repro_torch.distributed.sharding import (DEFAULT_RULES, lay_out,
+                                              make_variant, param_shardings,
+                                              resolve_spec)
+from repro_torch.launch.mesh import join_world, make_mesh
+from repro_torch.models.params import (init_params, is_pm, tree_leaves,
+                                       tree_unflatten)
+from repro_torch.models.registry import get_api
+args = json.loads(ARGS)
+rank = join_world()
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // args["ranks"]))
+cfg = pickle.loads(bytes.fromhex(args["cfg"]))
+defs = get_api(cfg).param_defs(cfg, args["max_seq"])
+params = init_params(defs, torch.Generator().manual_seed(args["seed"]), "cpu")
+out = {"rank": rank}
+
+
+def spec_window(spec, shape, sizes, coord):
+    # JAX's definition: a dim split over several axes, major to minor in
+    # the spec's order
+    win = []
+    for n, entry in zip(shape, spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) \\
+            else entry
+        idx, parts = 0, 1
+        for a in axes:
+            idx, parts = idx * sizes[a] + coord[a], parts * sizes[a]
+        win.append((idx * (n // parts), (idx + 1) * (n // parts)))
+    return tuple(slice(a, b) for a, b in win)
+
+
+if args["job"] == "save":
+    mesh = make_mesh(tuple(args["mesh"]), ("data", "model"), device="cpu")
+    tree = tree_unflatten(params, [
+        lay_out(t, l) for t, l in zip(tree_leaves(params), tree_leaves(
+            param_shardings(defs, mesh, DEFAULT_RULES)))])
+    mgr = CheckpointManager(args["root"])
+    t0 = time.perf_counter()
+    mgr.save(0, tree)
+    out.update(coord=mesh.get_coordinate(), save_s=time.perf_counter() - t0,
+               bytes_written=mgr.stats["last_bytes_written"],
+               bytes_referenced=mgr.stats["last_bytes_referenced"])
+else:
+    layouts = {
+        "baseline": (lambda: choose_mesh(args["ranks"], model_parallel=2,
+                                         device="cpu"), DEFAULT_RULES),
+        "fsdp": (lambda: make_mesh((args["ranks"], 1), ("data", "model"),
+                                   device="cpu"), make_variant("fsdp"))}
+    for name, (make, rules) in layouts.items():
+        mesh = make()
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        t0 = time.perf_counter()
+        state, meta = elastic_restore(CheckpointManager(args["root"]), defs,
+                                      mesh, rules)
+        restore_s = time.perf_counter() - t0
+        equal, sharded = True, 0
+        for p, t, dt in zip(tree_leaves(defs, is_leaf=is_pm),
+                            tree_leaves(params), tree_leaves(state)):
+            local = dt.to_local()
+            if rank == args["corrupt_rank"] and local.numel():
+                local.view(-1)[0] += 1        # the rehearsal's fault
+            win = spec_window(resolve_spec(p.logical, p.shape, mesh, rules,
+                                           fsdp=True), p.shape, sizes, coord)
+            equal &= torch.equal(local, t[win])
+            sharded += local.shape != t.shape
+        out[name] = {"mesh": sizes, "coord": mesh.get_coordinate(),
+                     "leaves_equal": equal, "sharded_leaves": sharded,
+                     "restore_s": restore_s,
+                     "source_world": meta["source_world"],
+                     "restored_onto": meta["restored_onto"]}
+print(json.dumps(out))
+"""
+
+
+def _world(n: int, job: dict) -> list:
+    """The elastic child in a CPU world of `n` ranks; each rank's JSON."""
+    import pickle
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import run_world
+    args = dict(job, ranks=n, seed=0, cfg=pickle.dumps(get_arch(ARCH)).hex(),
+                max_seq=ELASTIC["prompt"] + ELASTIC["new_tokens"] + 8,
+                corrupt_rank=CORRUPT_RANK)
+    code = f"ARGS = {json.dumps(args)!r}\n" + _ELASTIC_CHILD
+    outs = run_world(n, code, timeout_s=ELASTIC["world_timeout_s"],
+                     env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                     cwd=ROOT)
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def phase_elastic(card_line):
+    """Full-width smollm-135m's fp32 params (seed 0, a CPU generator)
+    laid out by DEFAULT_RULES on a (2, 2) CPU world and saved across its
+    ranks; restored elastically onto this process's 1-rank mesh on the
+    card (bit-equal to the tree built here), beside the plain restore;
+    served from the restored DTensors through the engine's graphs
+    (tokens and last logits bit-equal to the never-checkpointed tree's,
+    30 flash launches a request); then the card's tree saved and restored
+    into a 2-rank CPU world under two layouts (each rank's shard its
+    resolve_spec window of the tree, bit for bit)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import serialization as ser
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.elastic import choose_mesh, elastic_restore
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.models.registry import get_api
+    from repro_torch.serve.engine import ServeEngine
+    free_and_reset_peak()
+    cfg = get_arch(ARCH)
+    b, p, n_new = ELASTIC["batch"], ELASTIC["prompt"], ELASTIC["new_tokens"]
+    max_seq = p + n_new + 8
+    defs = get_api(cfg).param_defs(cfg, max_seq)
+    host = init_params(defs, torch.Generator().manual_seed(0), "cpu")
+    want = tree_map(lambda t: t.to(DEV), host)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(host))
+    with tempfile.TemporaryDirectory() as d:
+        world_root, card_root = Path(d) / "world", Path(d) / "card"
+        t0 = time.perf_counter()
+        saves = _world(ELASTIC["ranks"], {"job": "save",
+                                          "mesh": ELASTIC["mesh"],
+                                          "root": str(world_root)})
+        world_s = time.perf_counter() - t0
+        man = ser.load_manifest(world_root / "step_0000000000")
+        windows = {k: [[s["index"], s["device"]] for s in e["shards"]]
+                   for k, e in man["leaves"].items()}
+        raw = sum(s["raw"] for e in man["leaves"].values()
+                  for s in e["shards"])
+
+        mesh = choose_mesh(device=DEV)
+        mgr = CheckpointManager(world_root)
+        sync()
+        t0 = time.perf_counter()
+        state, meta = elastic_restore(mgr, defs, mesh, DEFAULT_RULES)
+        sync()
+        restore_s = time.perf_counter() - t0
+        # again: the first also pays this process's one-time DTensor set-up
+        again_mgr = CheckpointManager(world_root)
+        t0 = time.perf_counter()
+        again, _ = elastic_restore(again_mgr, defs, mesh, DEFAULT_RULES)
+        sync()
+        again_s = time.perf_counter() - t0
+        del again
+        plain_mgr = CheckpointManager(world_root)
+        t0 = time.perf_counter()
+        plain, _ = plain_mgr.restore(defs, device=DEV)
+        sync()
+        plain_restore_s = time.perf_counter() - t0
+        locals_ = [t.to_local() for t in tree_leaves(state)]
+        on_card = all(t.device.type == torch.device(DEV).type
+                      for t in locals_)
+        equal = all(torch.equal(a, w) for a, w in zip(locals_,
+                                                      tree_leaves(want)))
+        del plain
+
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, p)).astype(np.int32)
+        _backends(True)                      # what the serve CLI selects
+        try:
+            eng = ServeEngine(cfg, state, max_seq=max_seq, mesh=mesh,
+                              rules=DEFAULT_RULES)
+            ref = ServeEngine(cfg, want, max_seq=max_seq, device=DEV)
+            ops.reset_launch_counts()        # the main path starts here
+            res = eng.generate(prompts, n_new)
+            launches = _launches()           # ... and ends here
+            ref_res = ref.generate(prompts, n_new)
+        finally:
+            _backends(False)
+        tokens_equal = bool(np.array_equal(res.tokens, ref_res.tokens))
+        logits_equal = bool(torch.equal(eng._batches[b].logits,
+                                        ref._batches[b].logits))
+        capture_s = eng.capture_s
+        del eng, ref
+
+        card_mgr = CheckpointManager(card_root)
+        card_mgr.save(0, state)
+        card_mgr.wait()
+        reverse = _world(ELASTIC["reverse_ranks"],
+                         {"job": "restore", "root": str(card_root)})
+        del state, want
+    free()
+    expect_reverse = {
+        "baseline": {"data": 1, "model": ELASTIC["reverse_ranks"]},
+        "fsdp": {"data": ELASTIC["reverse_ranks"], "model": 1}}
+    reverse_ok = all(r[k]["leaves_equal"] and r[k]["mesh"] == m
+                     and r[k]["sharded_leaves"] > 0
+                     and r[k]["source_world"] == {"n_devices": 1}
+                     for r in reverse for k, m in expect_reverse.items())
+    written = sum(s["bytes_written"] for s in saves)
+    ok = (equal and on_card and tokens_equal and logits_equal
+          and launches["flash_attention_fwd"] == cfg.n_layers
+          and meta["source_world"] == {"n_devices": ELASTIC["ranks"]}
+          and meta["restored_onto"] == {"devices": 1,
+                                        "mesh": {"data": 1, "model": 1}}
+          and meta["topology_changed"] is True and raw == n_bytes
+          and reverse_ok)
+    emit("elastic", ok, card_line, arch=ARCH, dtype="float32",
+         param_bytes=n_bytes, world={"ranks": ELASTIC["ranks"],
+                                     "mesh": ELASTIC["mesh"],
+                                     "rules": DEFAULT_RULES.name,
+                                     "seconds": world_s},
+         save={"per_rank": saves, "bytes_written": written,
+               "raw_bytes_in_manifest": raw, "windows": windows},
+         restore={"meta": {k: meta[k] for k in (
+             "source_world", "restored_onto", "topology_changed",
+             "generation")}, "restore_s": restore_s,
+             "restore_device_s": mgr.stats["restore_device_s"],
+             "again_restore_s": again_s,
+             "again_restore_device_s": again_mgr.stats["restore_device_s"],
+             "plain_restore_s": plain_restore_s,
+             "plain_restore_device_s": plain_mgr.stats["restore_device_s"],
+             "leaves_equal": equal, "on_card": on_card},
+         serve={"batch": b, "prompt": p, "new_tokens": n_new,
+                "dtype": "bfloat16", "prefill_s": res.prefill_s,
+                "decode_s": res.decode_s, "tok_per_s": res.tokens_per_s,
+                "capture_s": capture_s, "launches": launches,
+                "tokens_equal": tokens_equal,
+                "logits_equal": logits_equal},
+         reverse=reverse, peak_bytes=peak_bytes())
+    return launches
 
 
 def phase_serve_hybrid(card_line):
@@ -3047,6 +3304,7 @@ def main() -> int:
         run("serve-parity", phase_serve_parity)
         counts = {"serve": run("serve", phase_serve)}
         run("checkpoint", phase_checkpoint)
+        counts["elastic"] = run("elastic", phase_elastic)
         run("serve-parity-hybrid", phase_serve_parity_hybrid)
         counts["serve-hybrid"] = run("serve-hybrid", phase_serve_hybrid)
         run("snapshot-hybrid", phase_snapshot_hybrid)
@@ -3069,6 +3327,9 @@ def main() -> int:
         return 1
     finally:
         print(json.dumps({"phase_seconds": seconds}), file=sys.stderr)
+        import torch.distributed as dist
+        if dist.is_initialized():            # the meshes' 1-rank world
+            dist.destroy_process_group()
     print(json.dumps(kernels_line(errs, counts, timing)))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

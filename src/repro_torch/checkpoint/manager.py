@@ -12,6 +12,7 @@ paper's protocol over a tree of tensors.
              unchanged chunks are REFERENCED, not rewritten (incremental)
   restore  = newest VALID checkpoint (corrupt/partial ones skipped,
              manifest-only fast validation), every leaf onto one device
+             or laid out on the current mesh, whatever mesh wrote it
 
 Manifests, chunk names and the store layout are the reference's, so
 either package restores what the other wrote.
@@ -34,10 +35,13 @@ from pathlib import Path
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import chunkstore
 from repro_torch.checkpoint import serialization as ser
-from repro_torch.checkpoint.resharding import restore_resharded
+from repro_torch.checkpoint.resharding import (derive_shardings,
+                                               leaf_layouts,
+                                               restore_resharded)
 from repro_torch.core import metrics as _metrics
 from repro_torch.core import trace as _trace
 from repro_torch.device import resolve_device
@@ -99,9 +103,18 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, state, meta: Optional[dict] = None) -> Path:
         """Drain -> host snapshot -> async commit.  Returns the ckpt dir.
-        The manifest meta records the SOURCE world (the CUDA device count
-        when the state is on CUDA, else 1) and the membership generation,
-        as the reference's does."""
+        The manifest meta records the SOURCE world (the world's size across
+        ranks; in a 1-rank world the CUDA device count when the state is on
+        CUDA, else 1) and the membership generation, as the reference's
+        does.  A caller's own ``world`` wins.
+
+        In a world of several ranks every rank calls ``save`` with its
+        DTensors: each writes its own windows' chunks into the shared
+        store, and rank 0 gathers the shard entries and commits the one
+        manifest after every rank's chunks are in.  That gather is a
+        collective on the default group, which a background thread must
+        not interleave with the caller's own, so such a save commits before
+        it returns, on every rank."""
         save_span = _trace.begin("ckptmgr.save", cat="ckpt",
                                  args={"step": step,
                                        "generation": self.generation})
@@ -119,10 +132,15 @@ class CheckpointManager:
         self.stats["snapshot_s"] += time.time() - t0
 
         ckpt_dir = self.root / f"step_{step:010d}"
+        ranks = dist.get_world_size() if dist.is_initialized() else 1
         meta = dict(meta or {}, step=step, time=time.time())
-        meta.setdefault("world", {"n_devices": torch.cuda.device_count()
-                                  if cuda else 1})
+        meta.setdefault("world", {"n_devices": ranks if ranks > 1 else
+                                  torch.cuda.device_count() if cuda else 1})
         meta.setdefault("generation", self.generation)
+        if ranks > 1:
+            self.stats["saves"] += 1
+            self._save_across_ranks(ckpt_dir, host_state, meta, save_span)
+            return ckpt_dir
 
         def _write():
             t1 = time.time()
@@ -181,6 +199,56 @@ class CheckpointManager:
             self._raise_pending()
         return ckpt_dir
 
+    def _save_across_ranks(self, ckpt_dir: Path, host_state, meta: dict,
+                           save_span) -> None:
+        """Every rank writes its chunks; rank 0 gathers the entries and
+        commits the manifest LAST; then every rank learns the outcome, so
+        none returns before the commit and a failure on any rank raises on
+        all (none waits forever in the gather)."""
+        t1 = time.time()
+        w0 = self.store.stats["bytes_written"]
+        r0 = self.store.stats["bytes_referenced"]
+        try:
+            with _trace.span("ckptmgr.write", parent=save_span, cat="ckpt",
+                             args={"step": meta["step"]}):
+                man = ser.write_chunks(ckpt_dir, host_state, meta=meta,
+                                       store=self.store,
+                                       workers=self.writer_threads,
+                                       stats=self.stats)
+            part = man["leaves"]
+        except Exception as e:     # reported to every rank, raised below
+            man, part = None, f"rank {dist.get_rank()}: {e!r}"
+        rank = dist.get_rank()
+        parts = [None] * dist.get_world_size() if rank == 0 else None
+        dist.gather_object(part, parts, dst=0)
+        outcome = [None]
+        if rank == 0:
+            errors = [p for p in parts if isinstance(p, str)]
+            if errors:
+                outcome = ["; ".join(errors)]
+            else:
+                man["leaves"] = ser.merge_leaves(parts)
+                try:
+                    ser.commit_manifest(ckpt_dir, man)
+                    self._gc()
+                except Exception as e:   # reported to every rank
+                    outcome = [f"rank 0: {e!r}"]
+        dist.broadcast_object_list(outcome, src=0)
+        self.stats["write_s"] += time.time() - t1
+        self.stats["last_bytes_written"] = \
+            self.store.stats["bytes_written"] - w0
+        self.stats["last_bytes_referenced"] = \
+            self.store.stats["bytes_referenced"] - r0
+        self.stats["bytes_written"] = self.store.stats["bytes_written"]
+        self.stats["bytes_referenced"] = self.store.stats["bytes_referenced"]
+        if outcome[0] is not None:
+            save_span.end(outcome="failed")
+            raise RuntimeError(f"checkpoint save across ranks failed: "
+                               f"{outcome[0]}")
+        save_span.end(outcome="ok",
+                      bytes_written=self.stats["last_bytes_written"],
+                      bytes_referenced=self.stats["last_bytes_referenced"])
+
     def wait(self) -> None:
         if self._pending is not None:
             self._pending.join()
@@ -235,27 +303,41 @@ class CheckpointManager:
                 return d
         return None
 
-    def restore(self, template, ckpt_dir: Optional[Path] = None, *,
+    def restore(self, template, shardings=None,
+                ckpt_dir: Optional[Path] = None, *, mesh=None, rules=None,
                 device="cuda"):
-        """Restore the newest valid checkpoint with every leaf on `device`
-        (resolved by ``resolve_device``: asking for CUDA without a card
-        raises; pass ``"cpu"`` to restore on the CPU).  `template` gives the
-        tree structure.  Returns (state, meta) or (None, None) if nothing
-        valid exists.
+        """Restore the newest valid checkpoint.  Layouts come from
+        `shardings` (a tree of ``sharding.Layout``), or are derived for
+        `mesh` (+ optional `rules`) when given (the elastic cross-topology
+        path): every leaf is then a DTensor on the mesh's device.
+        Otherwise every leaf lands on `device` (resolved by
+        ``resolve_device``: asking for CUDA without a card raises; pass
+        ``"cpu"`` to restore on the CPU).  `template` gives the tree
+        structure.  Returns (state, meta) or (None, None) if nothing valid
+        exists.
 
         Because fast validation is manifest-only, a size-preserving bit
         flip is first caught by the digest check DURING the restore read;
         when auto-picking, such a dir is skipped and the next older valid
         checkpoint is served (the pre-chunk-store 'corrupt ones skipped'
         guarantee).  An explicit `ckpt_dir` still raises."""
-        device = resolve_device(device)
-        if ckpt_dir is not None:
+        if shardings is None and mesh is not None:
+            shardings = derive_shardings(template, mesh, rules)
+        if shardings is None:
+            device = resolve_device(device)
+        else:
+            leaf_layouts(template, shardings)      # a caller's error raises
+
+        def one(d: Path):
             with _trace.span("ckptmgr.restore", cat="ckpt",
-                             args={"dir": ckpt_dir.name}):
-                state = restore_resharded(ckpt_dir, template, device=device,
-                                          store=self.store,
-                                          workers=self.writer_threads,
-                                          stats=self.stats)
+                             args={"dir": d.name}):
+                return restore_resharded(d, template, shardings,
+                                         device=device,
+                                         store=self.store,
+                                         workers=self.writer_threads,
+                                         stats=self.stats)
+        if ckpt_dir is not None:
+            state = one(ckpt_dir)
             self.stats["restores"] += 1
             return state, ser.load_manifest(ckpt_dir).get("meta", {})
         for step in reversed(self.list_steps()):
@@ -263,12 +345,7 @@ class CheckpointManager:
             if not ser.validate(d, store=self.store):
                 continue
             try:
-                with _trace.span("ckptmgr.restore", cat="ckpt",
-                                 args={"dir": d.name}):
-                    state = restore_resharded(d, template, device=device,
-                                              store=self.store,
-                                              workers=self.writer_threads,
-                                              stats=self.stats)
+                state = one(d)
             except torch.cuda.OutOfMemoryError:
                 raise                 # the device, not the checkpoint
             except (OSError, zlib.error, RuntimeError, ValueError):

@@ -2,8 +2,9 @@
 store: the reference's format (``repro.checkpoint.serialization``, manifest
 v3) over torch tensors.
 
-Each leaf of the state tree is written as one chunk per shard (on one
-device: one shard), named by the digest of its uncompressed bytes and
+Each leaf of the state tree is written as one chunk per shard (a plain
+tensor: one shard; a DTensor: the windows its ranks hold, each once),
+named by the digest of its uncompressed bytes and
 stored through a ``ChunkStoreBackend``; a JSON manifest holds the tree
 structure as ``/``-joined leaf keys, global shapes, numpy-style dtype
 strings (``"float32"``, ``"bfloat16"``) and shard index maps, and
@@ -44,10 +45,12 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import chunkstore
 from repro_torch.checkpoint.chunkstore import (ChunkReader, ChunkStoreBackend,
                                                content_digest)
+from repro_torch.distributed.sharding import is_dtensor, window
 
 try:                                    # zstandard is optional: fall back to
     import zstandard                    # zlib so the core C/R path has no
@@ -221,24 +224,47 @@ class HostArray:
 
     A CUDA tensor is copied to the host after its device synchronizes; a
     CPU tensor is cloned (``.cpu()`` of a CPU tensor is the same storage).
-    One shard covers the whole tensor, recorded with the device id the
-    reference records: the CUDA index, or 0 for the CPU (a JAX array on
-    the CPU is on device 0).  ``dtype`` is the numpy-style string; a bf16
+    A plain tensor is one shard covering the whole tensor, recorded with
+    the device id the reference records: the CUDA index, or 0 for the CPU
+    (a JAX array on the CPU is on device 0).  A DTensor is this rank's
+    window (from its placements and the rank's mesh coordinate), recorded
+    with the global rank as its device; replicas are deduplicated by
+    window BEFORE the copy, as the reference's are: only the rank at
+    coordinate 0 on every mesh dim the layout replicates copies and writes
+    the window, so a window replicated over N ranks costs one host copy
+    and one upload, not N.  ``dtype`` is the numpy-style string; a bf16
     tensor's host array holds its raw ``uint16`` words."""
 
     def __init__(self, t: torch.Tensor):
         t = t.detach()
         self.shape = tuple(t.shape)
         self.dtype = dtype_name(t.dtype)
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        host = t.to("cpu", copy=True).contiguous()
-        if t.dtype == torch.bfloat16:
-            data = host.view(torch.int16).numpy().view(np.uint16)
-        else:
-            data = host.numpy()
-        self.shards = [([[0, d] for d in self.shape], data,
-                        t.device.index or 0)]
+        if not is_dtensor(t):
+            self.shards = [([[0, d] for d in self.shape], _host(t),
+                             t.device.index or 0)]
+            return
+        mesh, places = t.device_mesh, t.placements
+        if any(p.is_partial() for p in places):
+            raise ValueError(f"a Partial DTensor has no window to save: "
+                             f"{places}")
+        coord = mesh.get_coordinate()
+        writer = all(c == 0 for c, p in zip(coord, places)
+                     if p.is_replicate())
+        self.shards = ([(window(places, self.shape, tuple(mesh.shape), coord),
+                         _host(t.to_local()),
+                         dist.get_rank() if dist.is_initialized() else 0)]
+                       if writer else [])
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A contiguous host copy of `t` as numpy (a bf16 tensor's raw uint16
+    words)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    host = t.to("cpu", copy=True).contiguous()
+    if t.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(np.uint16)
+    return host.numpy()
 
 
 def _walk(tree, fn, path=()):
@@ -415,8 +441,45 @@ def save_shards(ckpt_dir: Path, state, meta: Optional[dict] = None,
                 store: Optional[ChunkStoreBackend] = None,
                 workers: Optional[int] = None,
                 stats: Optional[dict] = None) -> dict:
-    """Write every addressable shard of every leaf into the chunk store and
-    commit a v3 manifest (LAST, for atomicity).  Returns the manifest.
+    """Write every shard of every leaf into the chunk store and commit a v3
+    manifest (LAST, for atomicity).  Returns the manifest.  The arguments
+    are ``write_chunks``'."""
+    manifest = write_chunks(ckpt_dir, state, meta, codec, store, workers,
+                            stats)
+    commit_manifest(ckpt_dir, manifest)
+    return manifest
+
+
+def commit_manifest(ckpt_dir: Path, manifest: dict) -> None:
+    """Write the manifest, atomically: the step exists from here on."""
+    _atomic_write(ckpt_dir / "MANIFEST.json",
+                  json.dumps(manifest, indent=1).encode())
+
+
+def merge_leaves(parts: Sequence[dict]) -> dict:
+    """One manifest's ``leaves`` from the ``leaves`` each rank's
+    ``write_chunks`` gave, in rank order: every leaf's shards of all
+    ranks, one per index window (the first rank's where two ranks wrote
+    the same window, as every rank does for a plain tensor)."""
+    out: Dict[str, Any] = {}
+    for leaves in parts:
+        for key, entry in leaves.items():
+            have = out.setdefault(key, {"shape": entry["shape"],
+                                        "dtype": entry["dtype"],
+                                        "shards": []})
+            seen = {json.dumps(s["index"]) for s in have["shards"]}
+            have["shards"].extend(s for s in entry.get("shards", ())
+                                  if json.dumps(s["index"]) not in seen)
+    return out
+
+
+def write_chunks(ckpt_dir: Path, state, meta: Optional[dict] = None,
+                 codec: Optional[str] = None,
+                 store: Optional[ChunkStoreBackend] = None,
+                 workers: Optional[int] = None,
+                 stats: Optional[dict] = None) -> dict:
+    """Write every shard this process holds of every leaf into the chunk
+    store; returns the v3 manifest for them, not yet committed.
 
     `store` defaults to ``ckpt_dir/chunks`` (a self-contained checkpoint);
     a CheckpointManager passes its root-level store so consecutive steps
@@ -509,13 +572,11 @@ def save_shards(ckpt_dir: Path, state, meta: Optional[dict] = None,
                 stats["hash_s"] = stats.get("hash_s", 0.0) + dh
                 stats["compress_s"] = stats.get("compress_s", 0.0) + dc
                 stats["io_s"] = stats.get("io_s", 0.0) + dio
-        for key, leaf_shards in per_leaf.items():
-            manifest["leaves"][key]["shards"] = leaf_shards
+        for key, entry in manifest["leaves"].items():
+            entry["shards"] = per_leaf.get(key, [])
     finally:
         if pool is not None:
             pool.shutdown(wait=True)
-    _atomic_write(ckpt_dir / "MANIFEST.json",
-                  json.dumps(manifest, indent=1).encode())
     return manifest
 
 

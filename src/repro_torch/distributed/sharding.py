@@ -1,0 +1,308 @@
+"""Logical-axis -> mesh-axis sharding rules (torch twin of
+``repro.distributed.sharding``), with divisibility-guarded resolution and
+optional FSDP parameter sharding, laid out as DTensor placements on a
+``DeviceMesh``.
+
+The same rules translate both parameter trees (via their Pm logical axes)
+and activations (via ``logical_spec`` / ``shard_act``).  Variants are
+alternative ``ShardingRules`` (``make_variant``).
+
+A spec is a tuple with one entry per tensor dim, the entries the
+reference's ``PartitionSpec`` holds: None (replicated), a mesh axis name,
+or a tuple of axis names the dim is split over jointly, major to minor.
+``resolve_spec`` reads only the mesh's axis sizes, so it takes either a
+``DeviceMesh`` or a plain ``{axis: size}`` mapping; so do
+``sharding_ctx`` and ``ctx_divisible``.
+
+``torch.distributed.tensor`` is imported only where a DTensor is made or
+moved: the model code imports this module, and a plain tensor never
+needs it.
+"""
+from __future__ import annotations
+
+import sys
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.models.params import tree_map_pm
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """logical axis name -> tuple of mesh axes to shard it over (jointly)."""
+
+    mapping: Dict[str, Tuple[str, ...]]
+    # shard each PARAM's largest still-replicated dim over these axes
+    # (ZeRO-3/FSDP); applied to parameter trees only, never activations.
+    fsdp_axes: Tuple[str, ...] = ()
+    name: str = "default"
+
+
+#: Baseline rules: DP over (pod, data), TP over model for vocab/heads/ffn/
+#: experts/recurrent width.  KV-cache seq replicated (variant shards it).
+DEFAULT_RULES = ShardingRules(mapping={
+    "batch":     ("pod", "data"),
+    "vocab":     ("model",),
+    "embed":     (),
+    "heads":     ("model",),
+    "kv_heads":  ("model",),
+    "ffn":       ("model",),
+    "experts":   ("model",),
+    "expert_ff": (),          # variant: shard expert FFN dim instead of E
+    "moe_groups": ("model",),  # picks up model when E is not divisible
+    "expert_cap": (),
+    "seq":       (),
+    "seq_saves": (),          # remat-save layout (variant sp_saves -> model)
+    "kv_seq":    (),          # decode cache sequence; variant -> ("model",)
+    "d_rnn":     ("model",),
+    "head_dim":  (),
+    "kv_lora":   (),
+    "layers":    (),
+    "frames":    (),
+    "window":    (),
+}, name="baseline")
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of a ``DeviceMesh`` (its dims in order), or of a
+    plain mapping, as given."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_size(mesh, axes: Tuple[str, ...]) -> int:
+    shape = mesh_shape(mesh)
+    return int(np.prod([shape[a] for a in axes], dtype=np.int64)) if axes else 1
+
+
+def resolve_spec(logical: Tuple[Optional[str], ...],
+                 shape: Tuple[int, ...],
+                 mesh,
+                 rules: ShardingRules,
+                 fsdp: bool = False) -> tuple:
+    """Logical axes -> spec, sharding only divisible dims and never
+    reusing a mesh axis within one spec."""
+    sizes = mesh_shape(mesh)
+    used: set = set()
+    parts = []
+    for dim, lname in zip(shape, logical):
+        cand = rules.mapping.get(lname, ()) if lname else ()
+        cand = tuple(a for a in cand if a in sizes and a not in used)
+        # longest divisible prefix: ("pod","data","model") degrades to
+        # ("pod","data") etc. when the dim doesn't divide the joint size
+        placed = None
+        while cand:
+            size = axis_size(sizes, cand)
+            if size > 1 and dim % size == 0:
+                placed = cand
+                break
+            cand = cand[:-1]
+        if placed:
+            parts.append(placed if len(placed) > 1 else placed[0])
+            used.update(placed)
+        else:
+            parts.append(None)
+    if fsdp and rules.fsdp_axes:
+        fax = tuple(a for a in rules.fsdp_axes if a in sizes and a not in used)
+        fsize = axis_size(sizes, fax)
+        if fax and fsize > 1:
+            # biggest still-replicated dim that divides
+            order = sorted(range(len(shape)), key=lambda i: -shape[i])
+            for i in order:
+                if parts[i] is None and logical[i] != "layers" and shape[i] % fsize == 0:
+                    parts[i] = fax if len(fax) > 1 else fax[0]
+                    break
+    return tuple(parts)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh axes, major to minor."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """A spec as DTensor placements, one per mesh dim: ``Shard(d)`` on each
+    mesh dim that splits tensor dim d, ``Replicate()`` elsewhere.
+
+    DTensor splits a dim sharded over several mesh dims in mesh-dim order,
+    JAX in the spec's order; the two agree only when a joint entry lists
+    its axes in mesh order.  The rules' joint entries, ("pod", "data"),
+    ("pod", "data", "model") and the FSDP ("data", "model"), all do; any
+    other order is refused, not silently transposed."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh_shape(mesh))
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        order = [names.index(a) for a in _axes(entry)]
+        if order != sorted(order):
+            raise ValueError(
+                f"spec entry {entry!r} lists mesh axes out of the mesh's "
+                f"order {tuple(names)}: DTensor would split dim {dim} in "
+                f"another order than the spec")
+        for i in order:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def window(places, shape: Tuple[int, ...], mesh_dims: Tuple[int, ...],
+           coord) -> list:
+    """The ``[start, stop]`` per tensor dim that the rank at mesh
+    coordinate ``coord`` holds under ``places`` (one per mesh dim,
+    sizes ``mesh_dims``): a dim split over several mesh dims is split
+    major to minor in mesh-dim order.  Every split must be even, as
+    ``resolve_spec`` guarantees."""
+    out = []
+    for d, n in enumerate(shape):
+        idx, parts = 0, 1
+        for i, p in enumerate(places):
+            if p.is_shard(d):
+                idx = idx * mesh_dims[i] + coord[i]
+                parts *= mesh_dims[i]
+        if n % parts:
+            raise ValueError(f"dim {d} of size {n} does not split evenly "
+                             f"over {parts} ranks")
+        step = n // parts
+        out.append([idx * step, (idx + 1) * step])
+    return out
+
+
+def is_dtensor(x) -> bool:
+    """True for a DTensor.  No DTensor exists before
+    ``torch.distributed.tensor`` is imported, so this imports nothing."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+@dataclass(frozen=True)
+class Layout:
+    """Where one leaf lives: its mesh, the DTensor placements, and the spec
+    they came from (the reference's ``NamedSharding(mesh, spec)``)."""
+
+    mesh: Any
+    placements: tuple
+    spec: tuple
+
+
+def lay_out(t, layout: Layout):
+    """This rank's window of the whole tensor `t`, on the mesh's device, as
+    a DTensor of `t`'s global shape (no collective: every rank holds `t`)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import mesh_device
+    mesh = layout.mesh
+    win = window(layout.placements, tuple(t.shape), tuple(mesh.shape),
+                 mesh.get_coordinate())
+    local = t[tuple(slice(a, b) for a, b in win)].contiguous()
+    return DTensor.from_local(local.to(mesh_device(mesh)), mesh,
+                              layout.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def param_shardings(defs, mesh, rules: ShardingRules):
+    """``Layout`` tree for a Pm tree (params or cache/state)."""
+    def one(p):
+        spec = resolve_spec(p.logical, p.shape, mesh, rules, fsdp=True)
+        return Layout(mesh, placements(spec, mesh), spec)
+    return tree_map_pm(one, defs)
+
+
+def logical_spec(logical: Tuple[Optional[str], ...], shape, mesh, rules) -> tuple:
+    return resolve_spec(tuple(logical), tuple(shape), mesh, rules, fsdp=False)
+
+
+# ---------------------------------------------------------------------------
+# Activation-sharding context: model code calls shard_act(x, logical_axes)
+# and the code that builds the step installs (mesh, rules) once.
+# ---------------------------------------------------------------------------
+
+class _Ctx(threading.local):
+    mesh: Any = None
+    rules: Optional[ShardingRules] = None
+
+
+_CTX = _Ctx()
+
+
+@contextmanager
+def sharding_ctx(mesh, rules: ShardingRules):
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, rules
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def shard_act(x, logical: Tuple[Optional[str], ...]):
+    """Lay a DTensor out by logical axes (the reference's
+    ``with_sharding_constraint``); the identity on a plain tensor and
+    outside a context."""
+    if _CTX.mesh is None or _CTX.rules is None or not is_dtensor(x):
+        return x
+    spec = resolve_spec(tuple(logical), tuple(x.shape), _CTX.mesh, _CTX.rules)
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+def ctx_divisible(lname: str, dim: int) -> bool:
+    """Inside a sharding ctx: would a dim of this size shard under logical
+    axis `lname`?  True outside any context (single-device paths).  Model
+    code uses this to pick sharding-compatible algorithm layouts (e.g. the
+    GQA head-fold vs expand-kv decision in attention.py)."""
+    if _CTX.mesh is None or _CTX.rules is None:
+        return True
+    sizes = mesh_shape(_CTX.mesh)
+    cand = tuple(a for a in _CTX.rules.mapping.get(lname, ()) if a in sizes)
+    size = axis_size(sizes, cand)
+    return size <= 1 or dim % size == 0
+
+
+# ---------------------------------------------------------------------------
+# Named rule variants (hillclimbing & ablation configs)
+# ---------------------------------------------------------------------------
+
+def make_variant(name: str) -> ShardingRules:
+    """Composable variants: "seqshard+fsdp", "kvseq", "dponly+fsdp", ...
+    Each '+'-separated part mutates the baseline rules."""
+    base = dict(DEFAULT_RULES.mapping)
+    fsdp_axes: Tuple[str, ...] = ()
+    parts = [p for p in name.split("+") if p]
+    for part in parts:
+        if part in ("baseline", "default"):
+            continue
+        elif part == "fsdp":
+            fsdp_axes = fsdp_axes or ("data",)
+        elif part == "kvseq":      # flash-decode style seq-sharded KV cache
+            base["kv_seq"] = ("model",)
+            base["kv_heads"] = ()
+        elif part == "seqshard":   # sequence parallelism for activations
+            base["seq"] = ("model",)
+        elif part == "sp_saves":   # shard ONLY remat saves over model
+            base["seq_saves"] = ("model",)
+        elif part == "expert_ff":  # shard expert FFN dim instead of E axis
+            base["experts"] = ()
+            base["expert_ff"] = ("model",)
+        elif part == "dponly":     # no tensor parallelism (small models)
+            for k in ("vocab", "heads", "kv_heads", "ffn", "experts",
+                      "d_rnn", "moe_groups"):
+                base[k] = ()
+            base["batch"] = ("pod", "data", "model")
+            if fsdp_axes:
+                fsdp_axes = ("data", "model")
+        elif part == "dponly_fsdp":
+            for k in ("vocab", "heads", "kv_heads", "ffn", "experts",
+                      "d_rnn", "moe_groups"):
+                base[k] = ()
+            base["batch"] = ("pod", "data", "model")
+            fsdp_axes = ("data", "model")
+        else:
+            raise KeyError(f"unknown sharding variant part {part!r}")
+    if "dponly" in parts and fsdp_axes:
+        fsdp_axes = ("data", "model")     # order-independent composition
+    return ShardingRules(mapping=base, fsdp_axes=fsdp_axes, name=name)

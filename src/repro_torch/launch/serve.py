@@ -29,6 +29,13 @@ with
 ``--snapshot-dir`` it then writes the serving state there
 (``ServeEngine.snapshot_service``, step = the round) and prints
 ``{"snapshot": dir, "step": round}``.
+
+``--variant`` (default ``baseline``; see ``sharding.make_variant``) and
+``--model-parallel`` (default 1) build the engine's mesh,
+``make_local_mesh(model=...)`` over the current world (one rank when no
+process group was started), and its sharding rules, as the reference's
+CLI does.  A ``--model-parallel`` that does not divide the world fails
+with the world's size; it is not clamped.
 """
 from __future__ import annotations
 
@@ -41,7 +48,9 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import make_variant
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_local_mesh, world_size
 from repro_torch.models.attention import set_attention_backend
 from repro_torch.models.layers import DEFAULT_POLICY
 from repro_torch.models.params import init_params
@@ -78,9 +87,19 @@ def run(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--snapshot-dir", default=None)
     args = ap.parse_args(argv)
+    try:
+        rules = make_variant(args.variant)
+    except KeyError as e:
+        ap.error(f"--variant {args.variant!r}: {e.args[0]}")
+    n = world_size()
+    if args.model_parallel < 1 or n % args.model_parallel:
+        ap.error(f"--model-parallel {args.model_parallel} does not divide "
+                 f"the world of {n} rank(s)")
 
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -95,7 +114,8 @@ def run(argv=None):
     # drawn in the compute dtype: the engine's cast is then a no-op
     params = init_params(api.param_defs(cfg, max_seq), gen, dev,
                          compute=DEFAULT_POLICY.compute)
-    eng = ServeEngine(cfg, params, max_seq=max_seq, device=dev)
+    mesh = make_local_mesh(model=args.model_parallel, device=dev)
+    eng = ServeEngine(cfg, params, max_seq=max_seq, mesh=mesh, rules=rules)
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,

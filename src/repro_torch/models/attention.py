@@ -19,15 +19,19 @@ Whisper's cross-attention (``cross_attn_forward``) is non-causal over
 the encoder memory; at 1500 frames its keys are no multiple of 128, so it
 takes the chunked path, as the reference's does.
 
-Left out until its slice lands (ROADMAP.md, Queue 1): the sharded
-``expand`` GQA layout (multi-device; on one device the reference never
-takes it).
+GQA layout choice (sharding-aware, as the reference's): folding H ->
+(KV, G) is only tensor-parallel-compatible when KV divides the model
+axis.  Under a ``sharding_ctx`` where q-heads shard but kv-heads don't,
+the chunked prefill and the decode instead EXPAND k/v to H heads and keep
+scores H-major.  Outside a context ``ctx_divisible`` is True, so the
+single-device paths always fold.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import ctx_divisible, shard_act
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_rope,
                                        rms_head_norm, rope_cos_sin, rope_qk)
 
@@ -106,6 +110,14 @@ def _fold_gqa(q, n_kv):
     return q.reshape(b, s, n_kv, h // n_kv, hd)
 
 
+def _expand(kvh: int, h: int) -> bool:
+    """Expand k/v to the q heads (the reference's condition): under a
+    sharding context where q-heads shard over the model axis and kv-heads
+    do not."""
+    return (kvh < h and not ctx_divisible("kv_heads", kvh)
+            and ctx_divisible("heads", h))
+
+
 def _mask_bias(q_pos, k_pos, window: int):
     """(Q,K) additive mask: causal, optionally local-window."""
     ok = k_pos[None, :] <= q_pos[:, None]
@@ -138,6 +150,25 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
     scale = hd ** -0.5
     hd_v = v.shape[-1]
     n_chunks = max(sq // q_chunk, 1)
+    if _expand(kvh, h):
+        g = h // kvh
+        ke = shard_act(k.repeat_interleave(g, dim=2).float(),
+                       ("batch", None, "heads", None))
+        ve = shard_act(v.repeat_interleave(g, dim=2),
+                       ("batch", None, "heads", None))
+
+        def chunk_e(qc, qpos_c):
+            s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), ke) * scale
+            s = shard_act(s, ("batch", "heads", "seq", "kv_seq"))
+            if causal:
+                s = s + _mask_bias(qpos_c, k_positions, window)[None, None]
+            p = _softmax_fp32(s)
+            return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), ve)
+
+        outs = [chunk_e(qc, pc) for qc, pc in
+                zip(q.chunk(n_chunks, dim=1), q_positions.chunk(n_chunks))]
+        return outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
+
     kf = k.float()
     qf = _fold_gqa(q, kvh)                            # (B,Sq,KV,G,hd)
 
@@ -242,11 +273,24 @@ def attn_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
     else:
         valid = idx[None] <= pos[:, None]                     # (B,S)
 
-    qf = _fold_gqa(q, kvh)                                    # (B,1,KV,G,hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), ck.float()) * (hd ** -0.5)
-    s = torch.where(valid[:, None, None, None], s, NEG_INF)
-    pr = _softmax_fp32(s).to(x.dtype)
-    o = torch.einsum("bkgqs,bskd->bqkgd", pr, cv)
+    h = cfg.n_heads
+    if _expand(kvh, h):
+        g = h // kvh
+        cke = shard_act(ck.repeat_interleave(g, dim=2),
+                        ("batch", "kv_seq", "heads", None))
+        cve = shard_act(cv.repeat_interleave(g, dim=2),
+                        ("batch", "kv_seq", "heads", None))
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), cke.float()) * (hd ** -0.5)
+        s = shard_act(s, ("batch", "heads", None, "kv_seq"))
+        s = torch.where(valid[:, None, None], s, NEG_INF)
+        pr = _softmax_fp32(s).to(x.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr, cve)
+    else:
+        qf = _fold_gqa(q, kvh)                                # (B,1,KV,G,hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), ck.float()) * (hd ** -0.5)
+        s = torch.where(valid[:, None, None, None], s, NEG_INF)
+        pr = _softmax_fp32(s).to(x.dtype)
+        o = torch.einsum("bkgqs,bskd->bqkgd", pr, cv)
     o = o.reshape(x.shape[0], 1, cfg.n_heads, hd)
     y = torch.einsum("bshk,hkd->bsd", o, policy.c(p["wo"]))
     return y, {"k": ck, "v": cv}

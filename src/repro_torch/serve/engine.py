@@ -21,6 +21,7 @@ A graph holds the addresses of the params and buffers it read: if
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from dataclasses import dataclass
@@ -31,7 +32,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed.sharding import (ShardingRules, is_dtensor,
+                                              sharding_ctx)
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.attention import get_attention_backend
 from repro_torch.models.layers import DEFAULT_POLICY, Policy
 from repro_torch.models.params import is_pm, tree_map
@@ -67,15 +71,28 @@ class _Prompt:
 
 
 class ServeEngine:
+    """``mesh`` and ``rules`` (both or neither) run the prefill and decode
+    steps inside ``sharding_ctx(mesh, rules)``, on the graph path too, as
+    the reference's programs do, and put the engine on the mesh's device.
+    The forward runs on plain tensors: a DTensor leaf must hold its whole
+    tensor on this rank (a replicated layout, or a 1-rank mesh) and is
+    served through its local tensor, with no copy; a sharded forward
+    waits for its slice (ROADMAP.md, Queue 1, item 6b)."""
+
     def __init__(self, cfg: ArchConfig, params, *, max_seq: int,
-                 policy: Policy = DEFAULT_POLICY, device="cuda"):
+                 policy: Policy = DEFAULT_POLICY, device="cuda", mesh=None,
+                 rules: Optional[ShardingRules] = None):
+        if (mesh is None) != (rules is None):
+            raise ValueError("pass mesh and rules together, or neither")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh, self.rules = mesh, rules
+        self.device = (mesh_device(mesh) if mesh is not None
+                       else resolve_device(device))
         self.max_seq = max_seq
         self.policy = policy
         self.api = get_api(cfg)
         self.params = policy.cast_params(
-            tree_map(lambda x: x.to(self.device), params))
+            tree_map(lambda x: _whole(x).to(self.device), params))
         self.cache = None
         self.pos = None
         self.generated: List[np.ndarray] = []
@@ -159,20 +176,28 @@ class ServeEngine:
             prompt.extras[k].copy_(x)
         return prompt
 
+    def _ctx(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding_ctx(self.mesh, self.rules)
+
     def _prefill_step(self, batch: _Batch, prompt: _Prompt) -> None:
         p = prompt.tokens.shape[1]
-        logits, _ = self.api.prefill(self.cfg, self.params, prompt.tokens,
-                                     prompt.extras, self.max_seq,
-                                     self.policy, cache=batch.cache)
+        with self._ctx():
+            logits, _ = self.api.prefill(self.cfg, self.params,
+                                         prompt.tokens, prompt.extras,
+                                         self.max_seq, self.policy,
+                                         cache=batch.cache)
         batch.logits.copy_(logits)
         batch.seq[:, p] = torch.argmax(logits, dim=-1)
         batch.pos.fill_(p)
 
     def _decode_step(self, batch: _Batch) -> None:
         at = batch.pos[:, None]
-        logits, _ = self.api.decode(self.cfg, self.params, batch.cache,
-                                    batch.seq.gather(1, at), batch.pos,
-                                    self.policy)
+        with self._ctx():
+            logits, _ = self.api.decode(self.cfg, self.params, batch.cache,
+                                        batch.seq.gather(1, at), batch.pos,
+                                        self.policy)
         batch.logits.copy_(logits)
         batch.seq.scatter_(1, at + 1, torch.argmax(logits, dim=-1)[:, None])
         batch.pos.add_(1)
@@ -248,3 +273,17 @@ class ServeEngine:
                    if self.generated else np.zeros((0, 0), np.int32)}
         mgr.save(step, payload, meta={"kind": "serve", "arch": self.cfg.name})
         mgr.wait()
+
+
+def _whole(x):
+    """A leaf as a plain tensor: a DTensor's local tensor, which must be
+    the whole tensor (no copy is made)."""
+    if not is_dtensor(x):
+        return x
+    local = x.to_local()
+    if local.shape != x.shape:
+        raise NotImplementedError(
+            f"a leaf sharded as {x.placements} on this rank "
+            f"({tuple(local.shape)} of {tuple(x.shape)}): the sharded "
+            f"forward waits for its slice (ROADMAP.md, Queue 1, item 6b)")
+    return local

@@ -309,8 +309,8 @@ def test_save_and_restore_record_the_reference_spans(tmp_path, monkeypatch):
 def test_remote_store_and_absent_card_raise(tmp_path, monkeypatch):
     """No fallback: each remote spec kind resolves to its chunk-service
     client (as the reference's open_store does; nothing is dialed until
-    the first call), never to a local store; and a restore onto CUDA
-    without a card does not land on the CPU."""
+    the first call), never to a local store; and a restore onto CUDA, or
+    onto a CUDA mesh, without a card does not land on the CPU."""
     cache = tmp_path / "cache"
     for spec, want in [
             ("remote://localhost:1", tcs.RemoteChunkStore),
@@ -333,9 +333,11 @@ def test_remote_store_and_absent_card_raise(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         mgr.restore(_state(), device="cuda")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        restore_resharded(mgr.latest_valid(), _state(), device="cpu",
-                          mesh=object())
+    with pytest.raises(RuntimeError, match="is_available"):
+        restore_resharded(mgr.latest_valid(), _state(), device="cuda")
+    from repro_torch.launch.mesh import make_local_mesh as t_local_mesh
+    with pytest.raises(RuntimeError, match="is_available"):
+        mgr.restore(_state(), mesh=t_local_mesh(device="cuda"))
 
 
 # ----------------------------------------------------------------- keys

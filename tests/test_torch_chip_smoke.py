@@ -287,6 +287,53 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     _check_remote_phase(phase["checkpoint-remote"])
 
 
+def test_chip_smoke_elastic_phase_on_cpu(smoke, capsys, monkeypatch):
+    """The elastic phase at smoke widths: a 4-rank CPU world saves, this
+    process restores onto its 1-rank mesh and serves (3 flash launches, one
+    per layer), a 2-rank world restores the tree under both layouts."""
+    monkeypatch.setattr(smoke, "ELASTIC", dict(smoke.ELASTIC, new_tokens=4))
+    counts = smoke.phase_elastic("cpu rehearsal, 0 W")
+    assert counts == {"flash_attention_fwd": 3, "rglru_scan": 0,
+                      "quantize_int8": 0, "dequantize_int8": 0}
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "elastic"'))
+    assert line["ok"]
+    save, restore, serve = line["save"], line["restore"], line["serve"]
+    assert sorted(r["rank"] for r in save["per_rank"]) == [0, 1, 2, 3]
+    # the ranks at data coordinate 1 hold replicas and write nothing
+    assert all((r["bytes_written"] > 0) == (r["coord"][0] == 0)
+               for r in save["per_rank"])
+    assert save["raw_bytes_in_manifest"] == line["param_bytes"]
+    embed = save["windows"]["embed/embedding"]
+    assert [w for w, _ in embed] == [[[0, 128], [0, 64]], [[128, 256],
+                                                           [0, 64]]]
+    assert restore["leaves_equal"] and restore["meta"] == {
+        "source_world": {"n_devices": 4},
+        "restored_onto": {"devices": 1, "mesh": {"data": 1, "model": 1}},
+        "topology_changed": True, "generation": 0}
+    assert serve["tokens_equal"] and serve["logits_equal"]
+    assert [r["rank"] for r in line["reverse"]] == [0, 1]
+    for r in line["reverse"]:
+        assert r["baseline"]["mesh"] == {"data": 1, "model": 2}
+        assert r["fsdp"]["mesh"] == {"data": 2, "model": 1}
+        assert r["baseline"]["leaves_equal"] and r["fsdp"]["leaves_equal"]
+
+
+def test_chip_smoke_elastic_phase_fails_on_a_corrupted_shard(smoke, capsys,
+                                                             monkeypatch):
+    """One element of rank 1's restored shard changed in the 2-rank world:
+    that rank's comparison, and with it the phase, fails."""
+    monkeypatch.setattr(smoke, "ELASTIC", dict(smoke.ELASTIC, new_tokens=4))
+    monkeypatch.setattr(smoke, "CORRUPT_RANK", 1)
+    with pytest.raises(smoke.PhaseFailed, match="elastic"):
+        smoke.phase_elastic("cpu rehearsal, 0 W")
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "elastic"'))
+    assert line["restore"]["leaves_equal"] and line["serve"]["tokens_equal"]
+    assert [(r["baseline"]["leaves_equal"], r["fsdp"]["leaves_equal"])
+            for r in line["reverse"]] == [(True, True), (False, False)]
+
+
 def _check_train_graph_fields(train):
     """The train line's graph fields, as the CPU runs them: the loop is
     eager there (no capture), so the graphed-vs-eager check holds the pure

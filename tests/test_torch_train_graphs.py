@@ -223,7 +223,8 @@ def test_save_between_replays_holds_the_pre_replay_values(graphs,
                 "data": {"seed": 0, "cursor": 0}}
     for step in (2, 4, 6):
         got, want = (CheckpointManager(tmp_path / k).restore(
-            template, tmp_path / k / f"step_{step:010d}", device="cpu")[0]
+            template, ckpt_dir=tmp_path / k / f"step_{step:010d}",
+            device="cpu")[0]
             for k in ("g", "e"))
         assert int(got["train"]["step"]) == step
         assert all(_bits_equal(a, b) for a, b in zip(tree_leaves(got),
