@@ -77,6 +77,22 @@ one JSON line each; any failure exits non-zero:
                  decode steps on the live engine, and 8 from the snapshot
                  restored onto the card: restored leaves bit-equal to the
                  host copy taken at snapshot time, equal tokens
+  sharded        the sharded forward: full-width recurrentgemma-9b, bf16,
+                 B=2, prompt 2560, 32 new, through the engine on the card's
+                 1-rank mesh (params as DTensors wrapping the plain
+                 engine's storage, graphs captured; the kernels through
+                 local_map: 12 flash, 26 RG-LRU launches a request),
+                 tokens and last logits bit-equal to the plain engine's,
+                 both captured and uncaptured, each one's prefill and
+                 decode step; a fresh process's first DTensor; then
+                 smollm-135m's widths at a 2-layer cut, fp32, B=4, 128+8,
+                 in CPU gloo worlds of 2 ranks (1, 2) and 4 ranks (2, 2)
+                 beside the card: tokens equal to the one-device engine's,
+                 logits within 1e-4, each block within 1e-4 of its
+                 output's scale (at least 1), each rank's bytes of
+                 params and cache the sum of its windows (9 query and 3
+                 kv heads do not divide model = 2: the attention stays
+                 replicated, the ffn and the vocab split)
   serve-parity-moe
                  full-width qwen2-moe-a2.7b (seeded random weights), fp32,
                  B=1, prompt 512 (two MoE groups): 24 flash launches; flash
@@ -187,6 +203,7 @@ nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -307,6 +324,11 @@ ELASTIC = dict(ranks=4, mesh=(2, 2), reverse_ranks=2, batch=4, prompt=128,
                new_tokens=32, world_timeout_s=300)
 CORRUPT_RANK = None          # a rank whose restored shard is corrupted
 REMOTE_LEGS = {"local": 0, "remote": 1, "sharded": 3}
+# the sharded phase: its CPU worlds (ranks, mesh) and their model, ARCH's
+# widths at a depth cut (the full-depth random stack is chaotic), fp32;
+# logits within tol, each block's output within tol of its scale
+SHARDED = dict(worlds=((2, (1, 2)), (4, (2, 2))), layers=2, batch=4,
+               prompt=128, new_tokens=8, tol=1e-4, world_timeout_s=300)
 REMOTE_SERVERS = "processes"
 # the train step's fp32 AdamW against an fp64 one on the same gradients:
 # fp32 rounding of the clip norm over 134.5 M squares and of each update
@@ -944,6 +966,15 @@ def _serve(arch, batch, prompt, new_tokens, snapshot_dir=None):
     return rows[-1], _launches(), eng           # ... and ends here
 
 
+def _local(tree):
+    """An engine's DTensor leaves as their local tensors, whole on the
+    card's 1-rank mesh: the plain model reads them as the engine's sharded
+    forward does, in the same storage."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.models.params import tree_map
+    return tree_map(lambda t: t.to_local() if is_dtensor(t) else t, tree)
+
+
 def _launches() -> dict:
     from repro_torch.kernels import ops
     return {"flash_attention_fwd": ops.FLASH_LAUNCHES,
@@ -964,7 +995,7 @@ def _uncaptured(eng, prompts, n_new, extras=None) -> dict:
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        logits, cache = eng.api.prefill(eng.cfg, eng.params, tokens,
+        logits, cache = eng.api.prefill(eng.cfg, _local(eng.params), tokens,
                                         dev_extras, eng.max_seq, eng.policy)
         first = torch.argmax(logits, dim=-1)[:, None]
         sync()
@@ -989,7 +1020,7 @@ def _profile_steps(eng, b, p) -> dict:
     import torch
     batch = eng._batches[b]
     prompt = next(pr for key, pr in eng._prompts.items() if key[0] == (b, p))
-    with torch.inference_mode():
+    with eng.no_grad():
         prefill, decode = eng._programs(batch, prompt)
         steps = {"decode": (functools.partial(eng._decode_step, batch), decode),
                  "prefill": (functools.partial(eng._prefill_step, batch,
@@ -1014,7 +1045,7 @@ def _graph_checks(eng, batch, prompt, new_tokens, extras=None) -> dict:
         0, eng.cfg.vocab_size, (batch, prompt)).astype(np.int32)
         for seed in (0, 1)]
     captured = [{"tokens": eng.generated[-1],
-                 "logits": eng._batches[batch].logits.clone()}]
+                 "logits": eng.last_logits(batch).clone()}]
     capture_s = eng.capture_s
     _backends(True)                             # what the CLI selected
     try:
@@ -1022,7 +1053,7 @@ def _graph_checks(eng, batch, prompt, new_tokens, extras=None) -> dict:
         res = eng.generate(prompts[1], new_tokens, extras=extras)
         launches = _launches()
         captured.append({"tokens": res.tokens,
-                         "logits": eng._batches[batch].logits.clone()})
+                         "logits": eng.last_logits(batch).clone()})
         plain = [_uncaptured(eng, p, new_tokens, extras) for p in prompts]
         profiles = _profile_steps(eng, batch, prompt)
     finally:
@@ -1365,8 +1396,8 @@ def phase_elastic(card_line):
         finally:
             _backends(False)
         tokens_equal = bool(np.array_equal(res.tokens, ref_res.tokens))
-        logits_equal = bool(torch.equal(eng._batches[b].logits,
-                                        ref._batches[b].logits))
+        logits_equal = bool(torch.equal(eng.last_logits(b),
+                                        ref.last_logits(b)))
         capture_s = eng.capture_s
         del eng, ref
 
@@ -1453,9 +1484,10 @@ def _continue(eng, cache, generated, pos, n):
                           device=eng.device)
     pos = pos.to(torch.long) - 1
     toks, logits = [], []
+    params, cache = _local(eng.params), _local(cache)
     with torch.inference_mode():
         for _ in range(n):
-            lg, cache = eng.api.decode(eng.cfg, eng.params, cache, tok, pos,
+            lg, cache = eng.api.decode(eng.cfg, params, cache, tok, pos,
                                        eng.policy)
             tok = torch.argmax(lg, dim=-1)[:, None]
             pos = pos + 1
@@ -1493,6 +1525,256 @@ def _hybrid_engine():
     launches = {"flash": ops.FLASH_LAUNCHES - before["flash"],
                 "rglru": ops.RGLRU_LAUNCHES - before["rglru"]}
     return eng, res, launches
+
+
+_SHARDED_CHILD = r"""
+import json, pickle, time
+import numpy as np
+import torch
+from repro_torch.distributed.sharding import (DEFAULT_RULES, is_dtensor,
+    param_shardings, sharding_ctx, window)
+from repro_torch.launch.mesh import join_world, make_mesh
+from repro_torch.models import model as lm
+from repro_torch.models.layers import Policy
+from repro_torch.models.params import init_params, is_pm, tree_leaves
+from repro_torch.models.registry import get_api
+from repro_torch.serve.engine import ServeEngine
+args = json.loads(ARGS)
+rank = join_world()
+mesh = make_mesh(tuple(args["mesh"]), ("data", "model"), device="cpu")
+coord = mesh.get_coordinate()
+cfg = pickle.loads(bytes.fromhex(args["cfg"]))
+b, p, n = args["batch"], args["prompt"], args["new_tokens"]
+max_seq = p + n + 8
+fp32 = Policy(compute=torch.float32)
+api = get_api(cfg)
+defs = api.param_defs(cfg, max_seq)
+params = init_params(defs, torch.Generator().manual_seed(0), "cpu")
+prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, p))
+t0 = time.perf_counter()
+eng = ServeEngine(cfg, params, max_seq=max_seq, policy=fp32, mesh=mesh,
+                  rules=DEFAULT_RULES)
+res = eng.generate(prompts, n)
+serve_s = time.perf_counter() - t0
+plain = ServeEngine(cfg, params, max_seq=max_seq, policy=fp32, device="cpu")
+ref = plain.generate(prompts, n)
+
+# the prefill's blocks, each path chained on its own output
+tokens = torch.as_tensor(prompts, dtype=torch.long)
+blocks, scales = [], []
+with torch.no_grad():
+    x = lm._embed_in(cfg, params, tokens, {}, fp32)
+    pos = lm._positions(b, p, "cpu")
+    with sharding_ctx(mesh, DEFAULT_RULES):
+        xs = lm._embed_in(cfg, eng.params, lm._tokens_in(tokens), {}, fp32)
+        pos_s = lm._positions(b, p, "cpu")
+    _, unit, n_units, _ = lm.stack_plan(cfg)
+    for u, us in zip(lm._unstack(params["units"], n_units),
+                     lm._unstack(eng.params["units"], n_units)):
+        for i, kind in enumerate(unit):
+            x = lm.apply_block(cfg, kind, u[f"b{i}"], x, pos, fp32)[0]
+            with sharding_ctx(mesh, DEFAULT_RULES):
+                xs = lm.apply_block(cfg, kind, us[f"b{i}"], xs, pos_s,
+                                    fp32)[0]
+            blocks.append(float((xs.full_tensor() - x).abs().max()))
+            scales.append(float(x.abs().max()))
+
+# each rank's bytes: held, and the sum of its windows by the layouts
+def held(tree):
+    return sum(t.to_local().numel() * t.element_size()
+               for t in tree_leaves(tree))
+def windows(defs, dtype_of):
+    total = 0
+    for d, lay in zip(tree_leaves(defs, is_leaf=is_pm),
+                      tree_leaves(param_shardings(defs, mesh,
+                                                  DEFAULT_RULES))):
+        win = window(lay.placements, d.shape, tuple(mesh.shape), coord)
+        total += int(np.prod([e - a for a, e in win])) * dtype_of(d)
+    return total
+cdefs = api.cache_defs(cfg, b, max_seq, torch.float32)
+size = lambda dt: torch.empty((), dtype=dt).element_size()
+attn = eng.params["units"]["b0"]["attn"]
+print(json.dumps({
+    "rank": rank, "coord": coord, "serve_s": serve_s,
+    "tokens_equal": bool(np.array_equal(res.tokens, ref.tokens)),
+    "logits_max_abs_diff": float((eng.last_logits(b)
+                                  - plain.last_logits(b)).abs().max()),
+    "block_max_abs_diff": blocks, "block_scale": scales,
+    "param_bytes": held(eng.params), "param_window_bytes": windows(
+        defs, lambda d: size(d.dtype)),
+    "param_bytes_whole": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params)),
+    "cache_bytes": held(eng.cache), "cache_window_bytes": windows(
+        cdefs, lambda d: size(d.dtype)),
+    "split": {"wq": str(attn["wq"].placements),
+              "mlp_wi": str(eng.params["units"]["b0"]["mlp"]["wi"].placements),
+              "embedding": str(eng.params["embed"]["embedding"].placements)}}))
+"""
+
+_FIRST_DTENSOR = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from repro_torch.launch.mesh import make_local_mesh
+t1 = time.perf_counter()
+mesh = make_local_mesh(device=sys.argv[1])
+t2 = time.perf_counter()
+from torch.distributed.tensor import DTensor, Replicate
+def op():
+    x = DTensor.from_local(torch.ones(4, device=sys.argv[1]), mesh,
+                           [Replicate()] * mesh.ndim, run_check=False)
+    y = (x * 2).sum().full_tensor()
+    if sys.argv[1] == "cuda":
+        torch.cuda.synchronize()
+op()
+t3 = time.perf_counter()
+op()
+t4 = time.perf_counter()
+print(json.dumps({"imports_s": t1 - t0, "mesh_s": t2 - t1,
+                  "first_op_s": t3 - t2, "second_op_s": t4 - t3}))
+"""
+
+
+def _sharded_worlds() -> list:
+    """The sharded child in each CPU world; each rank's JSON."""
+    import pickle
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import run_world
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=SHARDED["layers"])
+    out = []
+    for n, mesh in SHARDED["worlds"]:
+        args = {k: SHARDED[k] for k in ("batch", "prompt", "new_tokens")}
+        args.update(mesh=list(mesh), cfg=pickle.dumps(cfg).hex())
+        t0 = time.perf_counter()
+        outs = run_world(n, f"ARGS = {json.dumps(args)!r}\n" + _SHARDED_CHILD,
+                         timeout_s=SHARDED["world_timeout_s"],
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         cwd=ROOT)
+        out.append({"ranks": n, "mesh": {"data": mesh[0], "model": mesh[1]},
+                    "world_s": time.perf_counter() - t0,
+                    "per_rank": [json.loads(o.strip().splitlines()[-1])
+                                 for o in outs]})
+    return out
+
+
+def _first_dtensor() -> dict:
+    """The seconds a fresh process on this host takes to its first DTensor
+    op on a 1-rank mesh of the card (imports, mesh, first and second op)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _FIRST_DTENSOR, DEV], capture_output=True,
+        text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode:
+        raise RuntimeError(proc.stderr[-3000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_sharded(card_line):
+    """recurrentgemma-9b at full width through the sharded engine on this
+    process's 1-rank mesh beside the plain engine over the same storage;
+    a fresh process's first DTensor; the CPU worlds.  Returns the launch
+    counts of the sharded engine's second request (its graphs' replays),
+    the path's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.layers import DEFAULT_POLICY
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.models.registry import get_api
+    from repro_torch.serve.engine import ServeEngine
+    free_and_reset_peak()
+    hs = HYBRID_SERVE
+    b, p, n_new = hs["batch"], hs["prompt"], hs["new_tokens"]
+    cfg = get_arch(HYBRID)
+    max_seq = p + n_new + 8
+    # drawn in the compute dtype, as the serve CLI draws it: both engines'
+    # casts are no-ops, and the DTensors wrap the plain tensors' storage
+    params = init_params(get_api(cfg).param_defs(cfg, max_seq),
+                         torch.Generator(device=DEV).manual_seed(0), DEV,
+                         compute=DEFAULT_POLICY.compute)
+    plain = ServeEngine(cfg, params, max_seq=max_seq, device=DEV)
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(device=DEV)
+    eng = ServeEngine(cfg, params, max_seq=max_seq, mesh=mesh,
+                      rules=DEFAULT_RULES)
+    lay_out_s = time.perf_counter() - t0
+    del params
+    shared = all(t.to_local().data_ptr() == u.data_ptr() for t, u in zip(
+        tree_leaves(eng.params), tree_leaves(plain.params)))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, p)).astype(np.int32)
+    out = {}
+    _backends(True)
+    try:
+        for name, e in (("plain", plain), ("sharded", eng)):
+            first = e.generate(prompts, n_new)       # captures
+            out[name] = {"capture_s": e.capture_s,
+                         "first_prefill_s": first.prefill_s}
+        ops.reset_launch_counts()                    # the main path starts
+        res = eng.generate(prompts, n_new)
+        counts = _launches()                         # ... and ends here
+        ref = plain.generate(prompts, n_new)
+        for name, r in (("plain", ref), ("sharded", res)):
+            out[name].update(prefill_s=r.prefill_s,
+                             decode_step_ms=r.decode_s / (n_new - 1) * 1e3)
+        checks = {"tokens_equal": bool(np.array_equal(res.tokens,
+                                                      ref.tokens)),
+                  "logits_equal": bool(torch.equal(eng.last_logits(b),
+                                                   plain.last_logits(b)))}
+        with ops.uncounted():                        # the same, uncaptured
+            eager = {}
+            for name, e in (("plain", plain), ("sharded", eng)):
+                e._use_graphs = lambda: False
+                try:
+                    eager[name] = e.generate(prompts, n_new)
+                finally:
+                    del e._use_graphs
+                out[name].update(
+                    uncaptured_prefill_s=eager[name].prefill_s,
+                    uncaptured_decode_step_ms=eager[name].decode_s
+                    / (n_new - 1) * 1e3)
+        checks["uncaptured_tokens_equal"] = bool(np.array_equal(
+            eager["sharded"].tokens, ref.tokens))
+    finally:
+        _backends(False)
+    peak = peak_bytes()
+    del eng, plain
+    free()
+    first_dtensor = _first_dtensor()
+    worlds = _sharded_worlds()
+    tol = SHARDED["tol"]
+    world_ok = all(
+        r["tokens_equal"] and r["logits_max_abs_diff"] <= tol
+        and all(d <= tol * max(1.0, sc) for d, sc in
+                zip(r["block_max_abs_diff"], r["block_scale"]))
+        and r["param_bytes"] == r["param_window_bytes"]
+        and r["cache_bytes"] == r["cache_window_bytes"]
+        for w in worlds for r in w["per_rank"])
+    want = {"flash_attention_fwd": 12, "rglru_scan": 26}
+    if DEV != "cuda":           # smoke widths: one per block of each kind
+        kinds = cfg.layer_kinds()
+        want = {"flash_attention_fwd": kinds.count("local_attn"),
+                "rglru_scan": kinds.count("rglru")}
+    ok = (shared and all(checks.values()) and world_ok
+          and all(counts[k] == v for k, v in want.items()))
+    emit("sharded", ok, card_line, arch=HYBRID, dtype="bfloat16",
+         batch=b, prompt_len=p, new_tokens=n_new,
+         mesh={"data": 1, "model": 1}, rules="baseline",
+         storage_shared=shared, lay_out_s=lay_out_s, launches=counts,
+         expected_launches=want, peak_bytes=peak, **checks, **out,
+         first_dtensor=first_dtensor,
+         worlds={"arch": ARCH, "layers": SHARDED["layers"],
+                 "dtype": "float32", "batch": SHARDED["batch"],
+                 "prompt_len": SHARDED["prompt"],
+                 "new_tokens": SHARDED["new_tokens"], "tol": tol,
+                 "note": "9 query and 3 kv heads do not divide model = 2: "
+                         "the attention stays replicated; the ffn and the "
+                         "vocab split", "runs": worlds})
+    return counts
 
 
 def _snapshot_host_copy(eng, res):
@@ -1680,9 +1962,10 @@ def mla_absorbed_vs_expanded(eng, b=2):
     fp32 = Policy(compute=torch.float32)
     cfg, s = eng.cfg, MOE_SERVE["prompt"]
     _, unit, n_units, _ = lm.stack_plan(cfg)
-    layers = ([p["attn"] for p in eng.params["prefix"]]
+    params = _local(eng.params)
+    layers = ([p["attn"] for p in params["prefix"]]
               + [u[f"b{i}"]["attn"]
-                 for u in lm._unstack(eng.params["units"], n_units)
+                 for u in lm._unstack(params["units"], n_units)
                  for i in range(len(unit))])
     gen = torch.Generator(device=DEV).manual_seed(3)
     x = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV)
@@ -1959,8 +2242,10 @@ def block_times(eng, b, p) -> dict:
     Python) and captured (a CUDA graph's replay, by CUDA events; on the
     CPU None); each kind's block time times its count of blocks, over the
     prefill's the same way: its share of the prefill.  All in one place,
-    so both sides of a share see the same host."""
+    so both sides of a share see the same host; on a mesh both run the
+    sharded forward, in the engine's sharding context."""
     import torch
+    from repro_torch.distributed.sharding import replicate
     from repro_torch.kernels import ops
     from repro_torch.models import model as lm
     cfg = eng.cfg
@@ -1969,9 +2254,10 @@ def block_times(eng, b, p) -> dict:
     batch = eng._batches[b]
     prompt = next(pr for key, pr in eng._prompts.items() if key[0] == (b, p))
     gen = torch.Generator(device=DEV).manual_seed(4)
-    x = torch.randn((b, p, cfg.d_model), generator=gen,
-                    device=DEV).to(eng.policy.compute)
-    positions = lm._positions(b, p, DEV)
+    with eng._ctx():
+        x = replicate(torch.randn((b, p, cfg.d_model), generator=gen,
+                                  device=DEV).to(eng.policy.compute))
+        positions = lm._positions(b, p, DEV)
     kinds = cfg.layer_kinds()
 
     def timed(fn, graphed=None) -> dict:
@@ -1981,14 +2267,14 @@ def block_times(eng, b, p) -> dict:
 
     _backends(True)                 # what the CLI selected: its graphs' key
     try:
-        with torch.inference_mode(), ops.uncounted():
+        with eng.no_grad(), ops.uncounted():
             graphed = eng._programs(batch, prompt)[0]
             prefill = timed(lambda: eng._prefill_step(batch, prompt),
                             graphed if DEV == "cuda" else None)
     finally:
         _backends(False)
     out = {"prefill_ms": prefill}
-    with torch.inference_mode(), ops.uncounted():
+    with eng.no_grad(), ops.uncounted(), eng._ctx():
         for i, kind in enumerate(unit):
             if kind in out:
                 continue
@@ -3308,6 +3594,7 @@ def main() -> int:
         run("serve-parity-hybrid", phase_serve_parity_hybrid)
         counts["serve-hybrid"] = run("serve-hybrid", phase_serve_hybrid)
         run("snapshot-hybrid", phase_snapshot_hybrid)
+        counts["sharded"] = run("sharded", phase_sharded)
         run("serve-parity-moe", phase_serve_parity_moe)
         counts["serve-moe"] = run("serve-moe", phase_serve_moe)
         counts["serve-mla"] = run("serve-mla", phase_serve_mla)

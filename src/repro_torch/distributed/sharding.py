@@ -14,6 +14,14 @@ or a tuple of axis names the dim is split over jointly, major to minor.
 ``DeviceMesh`` or a plain ``{axis: size}`` mapping; so do
 ``sharding_ctx`` and ``ctx_divisible``.
 
+The sharded forward runs the model on DTensors under ``sharding_ctx``:
+``shard_act`` lays activations out at the reference's sites,
+``replicate`` brings the plain tensors the model makes itself onto the
+mesh, ``gather_fsdp`` gathers an FSDP-split layer for its use, and
+``local_map`` runs a function (a hand kernel, an in-place cache write) on
+each rank's shards.  Outside a mesh context all four leave plain tensors
+as they are.
+
 ``torch.distributed.tensor`` is imported only where a DTensor is made or
 moved: the model code imports this module, and a plain tensor never
 needs it.
@@ -28,7 +36,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.models.params import tree_map_pm
+from repro_torch.models.params import tree_map, tree_map_pm
 
 
 @dataclass(frozen=True)
@@ -205,12 +213,35 @@ def lay_out(t, layout: Layout):
                               shape=t.shape, stride=t.stride())
 
 
+def lay_out_zeros(shape, dtype, layout: Layout):
+    """A DTensor of zeros of global ``shape`` laid out as ``layout``: each
+    rank allocates its window only."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import mesh_device
+    mesh = layout.mesh
+    win = window(layout.placements, tuple(shape), tuple(mesh.shape),
+                 mesh.get_coordinate())
+    local = torch.zeros([b - a for a, b in win], dtype=dtype,
+                        device=mesh_device(mesh))
+    return DTensor.from_local(local, mesh, layout.placements,
+                              run_check=False)
+
+
+def layout_for(logical, shape, mesh, rules: ShardingRules,
+               fsdp: bool) -> Layout:
+    """The ``Layout`` of one tensor by its logical axes: a parameter's or
+    a cache leaf's (``fsdp=True``, as ``param_shardings``), or an
+    activation's (``fsdp=False``, as ``shard_act``)."""
+    spec = resolve_spec(tuple(logical), tuple(shape), mesh, rules, fsdp=fsdp)
+    return Layout(mesh, placements(spec, mesh), spec)
+
+
 def param_shardings(defs, mesh, rules: ShardingRules):
     """``Layout`` tree for a Pm tree (params or cache/state)."""
-    def one(p):
-        spec = resolve_spec(p.logical, p.shape, mesh, rules, fsdp=True)
-        return Layout(mesh, placements(spec, mesh), spec)
-    return tree_map_pm(one, defs)
+    return tree_map_pm(
+        lambda p: layout_for(p.logical, p.shape, mesh, rules, fsdp=True), defs)
 
 
 def logical_spec(logical: Tuple[Optional[str], ...], shape, mesh, rules) -> tuple:
@@ -246,8 +277,99 @@ def shard_act(x, logical: Tuple[Optional[str], ...]):
     outside a context."""
     if _CTX.mesh is None or _CTX.rules is None or not is_dtensor(x):
         return x
+    return x.redistribute(x.device_mesh, act_placements(x, logical))
+
+
+def ctx_mesh():
+    """The context's ``DeviceMesh``; None outside a context, and in one
+    over bare axis sizes (there nothing is a DTensor)."""
+    mesh = _CTX.mesh
+    return None if mesh is None or isinstance(mesh, Mapping) else mesh
+
+
+def replicate(x):
+    """A plain tensor made inside the model (positions, masks, rope
+    tables, slot indices) as a ``Replicate`` DTensor on the context's
+    mesh, with no copy: DTensor refuses to mix a plain tensor into an op.
+    A DTensor, and any tensor outside a mesh context, is returned as it
+    is."""
+    mesh = ctx_mesh()
+    if mesh is None or is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def act_placements(x, logical: Tuple[Optional[str], ...]) -> tuple:
+    """The placements ``shard_act`` gives the DTensor `x` under the
+    context."""
     spec = resolve_spec(tuple(logical), tuple(x.shape), _CTX.mesh, _CTX.rules)
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+    return placements(spec, x.device_mesh)
+
+
+def local_map(fn, args, in_axes, out_like=()):
+    """``fn(*locals)`` on this rank's shards, with stated placements: each
+    tensor argument is first laid out by its logical axes in ``in_axes``
+    (``shard_act``'s resolution) or by an entry of placements, and handed
+    to ``fn`` as its local tensor (a plain tensor enters as ``Replicate``,
+    and ``Replicate`` -> ``Shard`` is a local slice, no collective).  The
+    entry ``"local"`` hands over a DTensor's own shard as it is laid out,
+    so ``fn`` may write into it in place.  Output ``i`` of ``fn`` becomes
+    a DTensor with the
+    placements of argument ``out_like[i]``, its global shape that of its
+    local shape times the splits.  A function that only writes in place
+    returns nothing, with ``out_like=()``.
+
+    Outside a mesh context ``fn`` gets the arguments as they are.  The
+    hand kernels are reached through here: they take plain tensors only
+    (``kernels/ops.py`` refuses a DTensor), so each rank runs them on its
+    own heads or channels and nothing is gathered around them."""
+    mesh = ctx_mesh()
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor
+    laid, local = [], []
+    for a, axes in zip(args, in_axes):
+        a = replicate(a)
+        if axes != "local":
+            logical = isinstance(axes[0], str) or axes[0] is None
+            a = a.redistribute(mesh, act_placements(a, axes) if logical
+                               else tuple(axes))
+        laid.append(a)
+        local.append(a.to_local())
+    out = fn(*local)
+    if not out_like:
+        return out
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    wrapped = tuple(DTensor.from_local(o, mesh, laid[i].placements,
+                                       run_check=False)
+                    for o, i in zip(outs, out_like))
+    return wrapped[0] if single else wrapped
+
+
+def gather_fsdp(tree):
+    """ZeRO-3's gather: the DTensor leaves of the params one layer is about
+    to read, with their FSDP split (over the rules' ``fsdp_axes``)
+    replicated and their tensor-parallel split kept.  The gathered copy
+    lives while the layer runs; the stored leaves stay at their windows.
+    The tree as it is outside a mesh context or without FSDP."""
+    mesh = ctx_mesh()
+    if mesh is None or not _CTX.rules.fsdp_axes:
+        return tree
+    from torch.distributed.tensor import Replicate
+    dims = {i for i, n in enumerate(mesh.mesh_dim_names)
+            if n in _CTX.rules.fsdp_axes}
+
+    def one(x):
+        if not is_dtensor(x) or not any(x.placements[i].is_shard()
+                                        for i in dims):
+            return x
+        return x.redistribute(x.device_mesh, tuple(
+            Replicate() if i in dims else p
+            for i, p in enumerate(x.placements)))
+    return tree_map(one, tree)
 
 
 def ctx_divisible(lname: str, dim: int) -> bool:

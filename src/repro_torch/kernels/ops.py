@@ -16,6 +16,11 @@ nothing), and ``CountedGraph.replay`` adds it again on every replay.
 Launches inside ``uncounted()`` (a graph's warm-up) are set-up, not served
 work, and are taken back off too.
 
+``flash_attention`` and ``rglru`` take plain tensors and raise
+``TypeError`` on a DTensor: on a mesh the model reaches them through
+``distributed.sharding.local_map``, each rank on its own heads or
+channels.
+
 ``flash_attention`` is an ``autograd.Function``, as the reference's is a
 custom_vjp: the forward is the kernel (its plain version on the CPU), and
 the backward is autograd through the plain version on the saved q, k, v,
@@ -30,6 +35,7 @@ import contextlib
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import rglru as _rg
@@ -93,6 +99,18 @@ class CountedGraph:
         _add(self.launches)
 
 
+def _refuse_dtensor(name: str, *tensors) -> None:
+    """The kernels take plain tensors only: they read ``data_ptr`` and the
+    global shape would not be this rank's.  A DTensor reaches them through
+    ``distributed.sharding.local_map`` as its local shard; one that comes
+    in whole is a missed ``local_map``, refused here rather than gathered
+    or run through the plain version."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(
+            f"{name} takes plain tensors: run it on this rank's shards "
+            f"through repro_torch.distributed.sharding.local_map")
+
+
 def _refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
@@ -106,6 +124,7 @@ def _refuse_grad(name: str, *tensors) -> None:
 
 def _flash_fwd(q, k, v, causal, window):
     global FLASH_LAUNCHES
+    _refuse_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref_flash_attention(q, k, v, causal=causal, window=window)
     out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -140,6 +159,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
 def rglru(a, x, h0):
     """h_t = a_t h_{t-1} + x_t over axis 1.  Returns (h_seq fp32, h_last)."""
     global RGLRU_LAUNCHES
+    _refuse_dtensor("rglru", a, x, h0)
     _refuse_grad("rglru", a, x, h0)
     if a.device.type == "cpu":
         return ref_rglru(a, x, h0)

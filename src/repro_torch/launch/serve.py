@@ -32,25 +32,36 @@ with
 
 ``--variant`` (default ``baseline``; see ``sharding.make_variant``) and
 ``--model-parallel`` (default 1) build the engine's mesh,
-``make_local_mesh(model=...)`` over the current world (one rank when no
-process group was started), and its sharding rules, as the reference's
-CLI does.  A ``--model-parallel`` that does not divide the world fails
-with the world's size; it is not clamped.
+``make_local_mesh(model=...)`` over the current world, and its sharding
+rules, as the reference's CLI does.  A ``--model-parallel`` that does not
+divide the world fails with the world's size; it is not clamped.  The
+engine runs the sharded forward on that mesh: each rank holds its
+windows of the weights and the cache.  The world is the process group
+the caller started; a process that ``launch.mesh.run_world`` started
+(``REPRO_WORLD_STORE`` in its environment) joins its world; any other
+runs a 1-rank world.  Every rank serves; rank 0 prints the rows, each
+with the round's generated tokens, whole on every rank:
+
+  python -c "from repro_torch.launch.serve import main; main(['--arch',
+      'smollm-135m', '--reduced', '--device', 'cpu', '--model-parallel',
+      '2'])"            # as each of 2 ranks of launch.mesh.run_world
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import make_variant
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import make_local_mesh, world_size
+from repro_torch.launch.mesh import join_world, make_local_mesh, world_size
 from repro_torch.models.attention import set_attention_backend
 from repro_torch.models.layers import DEFAULT_POLICY
 from repro_torch.models.params import init_params
@@ -71,6 +82,12 @@ def request_extras(cfg, batch: int) -> dict:
         extras["vision_embeds"] = np.ones(
             (batch, cfg.n_vision_tokens, cfg.d_model), np.float32) * .1
     return extras
+
+
+def _say(row: dict) -> None:
+    """One JSON line, from rank 0 of a world of several."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(row))
 
 
 def main(argv=None) -> list:
@@ -96,6 +113,8 @@ def run(argv=None):
         rules = make_variant(args.variant)
     except KeyError as e:
         ap.error(f"--variant {args.variant!r}: {e.args[0]}")
+    if not dist.is_initialized() and "REPRO_WORLD_STORE" in os.environ:
+        join_world()
     n = world_size()
     if args.model_parallel < 1 or n % args.model_parallel:
         ap.error(f"--model-parallel {args.model_parallel} does not divide "
@@ -130,12 +149,13 @@ def run(argv=None):
         row = {"round": r, "prefill_s": res.prefill_s,
                "decode_s": res.decode_s, "tok_per_s": res.tokens_per_s,
                "flash_launches": ops.FLASH_LAUNCHES,
-               "rglru_launches": ops.RGLRU_LAUNCHES}
-        print(json.dumps(row))
+               "rglru_launches": ops.RGLRU_LAUNCHES,
+               "tokens": res.tokens.tolist()}
+        _say(row)
         rows.append(row)
         if args.snapshot_dir:
             eng.snapshot_service(CheckpointManager(args.snapshot_dir), step=r)
-            print(json.dumps({"snapshot": args.snapshot_dir, "step": r}))
+            _say({"snapshot": args.snapshot_dir, "step": r})
     return rows, eng
 
 

@@ -25,13 +25,25 @@ axis.  Under a ``sharding_ctx`` where q-heads shard but kv-heads don't,
 the chunked prefill and the decode instead EXPAND k/v to H heads and keep
 scores H-major.  Outside a context ``ctx_divisible`` is True, so the
 single-device paths always fold.
+
+On a mesh (the sharded forward) q, k and v are DTensors split over their
+heads.  The flash kernel is reached through ``sharding.local_map``: each
+rank folds its own heads into rows (B·H/m of them; k and v expanded to
+the query heads first where the kv heads do not split), so nothing is
+gathered around the kernel.  The chunked path keeps the reference's
+``shard_act`` sites.  A cache write is local to each rank's window of
+the DTensor cache (``_write_slots``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import ctx_divisible, shard_act
+from repro_torch.distributed.sharding import (ctx_divisible, ctx_mesh,
+                                              local_map, replicate,
+                                              shard_act, window)
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_rope,
                                        rms_head_norm, rope_cos_sin, rope_qk)
 
@@ -104,6 +116,20 @@ def mla_defs(cfg: ArchConfig):
 # Core chunked softmax attention (GQA; causal or local window)
 # --------------------------------------------------------------------------
 
+def _flash(q, k, v, *, causal, window):
+    """The flash kernel over plain (B, S, H|KV, hd) tensors, heads folded
+    into rows."""
+    from repro_torch.kernels import ops as kops
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    # contiguous: at B=1 the reshape alone returns a strided view
+    qt = q.transpose(1, 2).contiguous().view(b * h, sq, hd)
+    kt = k.transpose(1, 2).contiguous().view(b * kvh, k.shape[1], hd)
+    vt = v.transpose(1, 2).contiguous().view(b * kvh, v.shape[1], hd)
+    ot = kops.flash_attention(qt, kt, vt, causal, window)
+    return ot.reshape(b, h, sq, hd).transpose(1, 2)
+
+
 def _fold_gqa(q, n_kv):
     """(B,S,H,hd) -> (B,S,KV,G,hd)."""
     b, s, h, hd = q.shape
@@ -139,13 +165,19 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     if _BACKEND == "flash" and _flash_ok(q, k, v, q_positions, causal):
-        from repro_torch.kernels import ops as kops
-        # contiguous: at B=1 the reshape alone returns a strided view
-        qt = q.transpose(1, 2).contiguous().view(b * h, sq, hd)
-        kt = k.transpose(1, 2).contiguous().view(b * kvh, k.shape[1], hd)
-        vt = v.transpose(1, 2).contiguous().view(b * kvh, v.shape[1], hd)
-        ot = kops.flash_attention(qt, kt, vt, causal, window)
-        return ot.reshape(b, h, sq, hd).transpose(1, 2)
+        kv_axes = ("batch", None, "kv_heads", None)
+        if _expand(kvh, h):
+            g = h // kvh
+            k = shard_act(k.repeat_interleave(g, dim=2),
+                          ("batch", None, "heads", None))
+            v = shard_act(v.repeat_interleave(g, dim=2),
+                          ("batch", None, "heads", None))
+            kv_axes = ("batch", None, "heads", None)
+        # each rank folds its own heads: the kernel sees B·H/m rows
+        return local_map(functools.partial(_flash, causal=causal,
+                                           window=window),
+                         (q, k, v), (("batch", None, "heads", None),
+                                     kv_axes, kv_axes), out_like=(0,))
 
     scale = hd ** -0.5
     hd_v = v.shape[-1]
@@ -175,6 +207,7 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
     def chunk(qc, qpos_c):
         # fp32 scores (the reference's preferred_element_type=float32)
         s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
+        s = shard_act(s, ("batch", "kv_heads", "heads", "seq", "kv_seq"))
         if causal:
             s = s + _mask_bias(qpos_c, k_positions, window)[None, None, None]
         p = _softmax_fp32(s)
@@ -226,8 +259,10 @@ def cross_attn_forward(cfg: ArchConfig, p, x, mem, *, policy=DEFAULT_POLICY):
     v = torch.einsum("bsd,dhk->bshk", mem, c(p["wv"]))
     sq, sk = x.shape[1], mem.shape[1]
     out = gqa_attention(q, k, v,
-                        q_positions=torch.arange(sq, device=x.device),
-                        k_positions=torch.arange(sk, device=x.device),
+                        q_positions=replicate(torch.arange(sq,
+                                                           device=x.device)),
+                        k_positions=replicate(torch.arange(sk,
+                                                           device=x.device)),
                         causal=False, q_chunk=min(1024, sq))
     return torch.einsum("bshk,hkd->bsd", out, c(p["wo"]))
 
@@ -246,13 +281,48 @@ def kv_cache_defs(cfg: ArchConfig, batch: int, max_seq: int,
                     init="zeros", dtype=dtype)}
 
 
+def _write_slots(cache, new, slots):
+    """cache (B, S, ...) <- new (B, n, ...) at the slots (B, n), in place;
+    returns ``cache``.  On a mesh each rank writes its own window of the
+    DTensor cache from its own rows of ``new`` (laid out as the cache,
+    seq aside), with no collective.  Where the cache's seq dim is split,
+    a rank drops the slots outside its window."""
+    s_all, off = cache.shape[1], 0
+    mesh = ctx_mesh()
+    like = rows = None
+    if mesh is not None:
+        from torch.distributed.tensor import Replicate, Shard
+        places = cache.placements
+        off = window(places, tuple(cache.shape), tuple(mesh.shape),
+                     mesh.get_coordinate())[1][0]
+        # new: the cache's layout with its seq dim whole; the slot table
+        # (B, n): its rows split as the cache's
+        like = tuple(Replicate() if p.is_shard(1) else p for p in places)
+        rows = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                     for p in places)
+
+    def write(c, n, sl):
+        r = torch.arange(c.shape[0], device=c.device)[:, None]
+        if c.shape[1] == s_all:
+            c[r, sl] = n
+            return
+        ls = sl - off
+        ok = (ls >= 0) & (ls < c.shape[1])
+        # slots outside the window go to a spare slot that is then dropped
+        spare = torch.cat([c, c[:, :1]], dim=1)
+        spare[r, torch.where(ok, ls, c.shape[1])] = n
+        c.copy_(spare[:, :c.shape[1]])
+
+    local_map(write, (cache, new, slots), ("local", like, rows))
+    return cache
+
+
 def _cache_update(cache, new, slot):
     """cache (B,S,KV,hd) <- new (B,1,KV,hd) at per-batch slot (B,).
     Writes IN PLACE (the reference returns an updated copy and donates the
     old buffer; here the old contents are not needed either) and returns
     ``cache``."""
-    cache[torch.arange(cache.shape[0], device=cache.device), slot] = new[:, 0]
-    return cache
+    return _write_slots(cache, new, slot[:, None])
 
 
 def attn_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
@@ -267,7 +337,7 @@ def attn_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
     cv = _cache_update(cache["v"], v.to(cache["v"].dtype), slot)
 
     kvh, hd = cfg.n_kv_heads, cfg.hd
-    idx = torch.arange(s_cache, device=pos.device)
+    idx = replicate(torch.arange(s_cache, device=pos.device))
     if cfg.window:
         valid = (idx[None] <= slot[:, None]) | (pos[:, None] >= s_cache)
     else:
@@ -288,6 +358,7 @@ def attn_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
     else:
         qf = _fold_gqa(q, kvh)                                # (B,1,KV,G,hd)
         s = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), ck.float()) * (hd ** -0.5)
+        s = shard_act(s, ("batch", "kv_heads", "heads", None, "kv_seq"))
         s = torch.where(valid[:, None, None, None], s, NEG_INF)
         pr = _softmax_fp32(s).to(x.dtype)
         o = torch.einsum("bkgqs,bskd->bqkgd", pr, cv)
@@ -313,18 +384,31 @@ def attn_prefill(cfg: ArchConfig, p, x, positions, max_cache: int, *,
     b, s = x.shape[0], x.shape[1]
     s_cache = min(max_cache, window) if window else max_cache
     n_keep = min(s, s_cache)
-    slots = torch.arange(s - n_keep, s, device=x.device) % s_cache
+    slots = (torch.arange(s - n_keep, s, device=x.device) % s_cache)
+    slots = replicate(slots[None].expand(b, n_keep))
     cache_dt = x.dtype                      # cache dtype == compute dtype
     if into is None:
-        ck = torch.zeros((b, s_cache) + tuple(k.shape[2:]), dtype=cache_dt,
-                         device=x.device)
-        cv = torch.zeros((b, s_cache) + tuple(v.shape[2:]), dtype=cache_dt,
-                         device=x.device)
+        ck = _zeros_like_rows(k, s_cache, cache_dt)
+        cv = _zeros_like_rows(v, s_cache, cache_dt)
     else:
         ck, cv = into["k"].zero_(), into["v"].zero_()
-    ck[:, slots] = k[:, s - n_keep:].to(cache_dt)
-    cv[:, slots] = v[:, s - n_keep:].to(cache_dt)
+    _write_slots(ck, k[:, s - n_keep:].to(cache_dt), slots)
+    _write_slots(cv, v[:, s - n_keep:].to(cache_dt), slots)
     return y, {"k": ck, "v": cv}
+
+
+def _zeros_like_rows(t, n: int, dtype):
+    """Zeros of ``t``'s shape with dim 1 of size ``n``, laid out as ``t``
+    (a DTensor's dim 1, the sequence, is never split here)."""
+    if ctx_mesh() is None:
+        return torch.zeros((t.shape[0], n) + tuple(t.shape[2:]), dtype=dtype,
+                           device=t.device)
+    from torch.distributed.tensor import DTensor
+    local = t.to_local()
+    z = torch.zeros((local.shape[0], n) + tuple(local.shape[2:]),
+                    dtype=dtype, device=local.device)
+    return DTensor.from_local(z, t.device_mesh, t.placements,
+                              run_check=False)
 
 
 # --------------------------------------------------------------------------
@@ -397,10 +481,8 @@ def mla_prefill(cfg: ArchConfig, p, x, positions, max_cache: int, *,
     b, s = x.shape[0], x.shape[1]
     cache_dt = x.dtype
     if into is None:
-        ckv = torch.zeros((b, max_cache, m.kv_lora_rank), dtype=cache_dt,
-                          device=x.device)
-        ckr = torch.zeros((b, max_cache, m.qk_rope_head_dim), dtype=cache_dt,
-                          device=x.device)
+        ckv = _zeros_like_rows(c_kv, max_cache, cache_dt)
+        ckr = _zeros_like_rows(k_rope, max_cache, cache_dt)
     else:
         ckv, ckr = into["c_kv"].zero_(), into["k_rope"].zero_()
     ckv[:, :s] = c_kv.to(cache_dt)
@@ -416,17 +498,18 @@ def mla_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
     m = cfg.mla
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(cfg, p, x, pos[:, None],
                                                     policy)
-    rows = torch.arange(x.shape[0], device=x.device)
     ckv, ckr = cache["c_kv"], cache["k_rope"]
-    ckv[rows, pos] = c_kv_new[:, 0].to(ckv.dtype)
-    ckr[rows, pos] = k_rope_new[:, 0].to(ckr.dtype)
+    _write_slots(ckv, c_kv_new.to(ckv.dtype), pos[:, None])
+    _write_slots(ckr, k_rope_new.to(ckr.dtype), pos[:, None])
 
     # absorb: q' = q_nope @ w_uk -> (B,1,H,r); fp32 scores vs the cache
     q_abs = torch.einsum("bshk,rhk->bshr", q_nope, c(p["w_uk"]))
     s = torch.einsum("bshr,btr->bhst", q_abs.float(), ckv.float())
     s = s + torch.einsum("bshk,btk->bhst", q_rope.float(), ckr.float())
     s = s * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    valid = torch.arange(ckv.shape[1], device=x.device)[None] <= pos[:, None]
+    s = shard_act(s, ("batch", "heads", None, "kv_seq"))
+    valid = replicate(torch.arange(ckv.shape[1], device=x.device))[None] \
+        <= pos[:, None]
     s = torch.where(valid[:, None, None], s, NEG_INF)
     pr = _softmax_fp32(s).to(x.dtype)
     ctx = torch.einsum("bhst,btr->bshr", pr, ckv)             # (B,1,H,r)

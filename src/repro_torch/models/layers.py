@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import replicate, shard_act
 from repro_torch.models.params import Pm, tree_map
 
 
@@ -76,8 +77,8 @@ def rms_head_norm(x, scale, eps=1e-5):
 def rope_cos_sin(positions, rot_dim: int, theta: float):
     """positions (...,) int -> cos/sin (..., rot_dim//2) fp32."""
     half = rot_dim // 2
-    exponent = torch.arange(half, dtype=torch.float32,
-                            device=positions.device) / half
+    exponent = replicate(torch.arange(half, dtype=torch.float32,
+                                      device=positions.device)) / half
     freqs = 1.0 / (theta ** exponent)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
@@ -109,6 +110,15 @@ def rope_qk(q, k, positions, rot_dim, theta):
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
+
+def residual(x, y):
+    """``x + y``, ``y`` a row-parallel product's output (an attention or
+    MLP output projection): on a mesh its partial sums are reduced first,
+    so the residual stream stays whole on every model rank.  (Added as it
+    comes, DTensor would carry the sum partial and reduce it again at
+    every later read.)"""
+    return x + shard_act(y, ("batch", "seq", "embed"))
+
 
 def mlp_defs(cfg: ArchConfig, d_ff: int | None = None, ff_axis: str = "ffn"):
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
@@ -149,7 +159,11 @@ def embed_defs(cfg: ArchConfig):
 
 
 def embed_tokens(cfg, p, tokens, policy=DEFAULT_POLICY):
-    return policy.c(p["embedding"][tokens])
+    """The reference's ``jnp.take``.  ``F.embedding`` is the same gather;
+    on a vocab-sharded table it stays vocab-parallel (each rank looks up
+    the tokens in its rows, the rest is summed in by ``shard_act``), where
+    indexing would gather the whole table."""
+    return policy.c(F.embedding(tokens, p["embedding"]))
 
 
 def lm_logits(cfg, p, x, policy=DEFAULT_POLICY):

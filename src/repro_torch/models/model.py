@@ -12,6 +12,14 @@ units; here a Python loop indexes the L dim.
 
 Params / cache trees, as in the reference:
   {"embed":…, "pos"?:…, "prefix":[…], "units": stacked, "tail":[…], "final":…}
+
+Under ``sharding_ctx(mesh, rules)`` with DTensor params and cache (the
+sharded forward) the same code runs on DTensors: the token ids are split
+over the batch before the vocab-parallel lookup, activations are laid
+out at the reference's ``shard_act`` sites (the embedded input, a
+block's output, the unit carry, the logits), each residual add reduces
+its row-parallel product (``layers.residual``), and an FSDP-split
+layer is gathered for its use (``sharding.gather_fsdp``).
 """
 from __future__ import annotations
 
@@ -21,12 +29,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (gather_fsdp, replicate,
+                                              shard_act)
 from repro_torch.models import attention as att
 from repro_torch.models import rglru as rg
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
                                        apply_norm, embed_defs, embed_tokens,
-                                       lm_logits, mlp_defs, norm_defs)
+                                       lm_logits, mlp_defs, norm_defs,
+                                       residual)
 from repro_torch.models.moe import apply_moe, moe_defs
 from repro_torch.models.params import stack_defs
 
@@ -98,28 +109,35 @@ def block_defs(cfg: ArchConfig, kind: str):
             "ln2": norm_defs(cfg), "mlp": ff}
 
 
+def _act_out(x):
+    """A block's output, laid out as the reference's ``model.py:104``: the
+    row-parallel products' partial sums reduced, the batch split."""
+    return shard_act(x, ("batch", "seq", "embed"))
+
+
 def apply_block(cfg, kind, p, x, positions, policy=DEFAULT_POLICY):
     """Training/prefill-style full-sequence block.  Returns (x, aux, cache);
     the cache is the recurrent carry state, None for attention kinds, and
     aux the MoE load-balance loss (0 for the other kinds)."""
     _check_kind(cfg, kind)
+    p = gather_fsdp(p)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in _RECURRENT:
         x, state = _RECURRENT[kind][1](cfg, p, x, policy)
-        return x, aux, state
+        return _act_out(x), aux, state
     h = apply_norm(cfg, p["ln1"], x, policy)
     if cfg.mla is not None:
         a = att.mla_forward(cfg, p["attn"], h, positions, policy=policy)
     else:
         a = att.attn_forward(cfg, p["attn"], h, positions,
                              window=_window(cfg, kind), policy=policy)
-    x = x + a
+    x = residual(x, a)
     h = apply_norm(cfg, p["ln2"], x, policy)
     if kind == "moe":
         m, aux = apply_moe(cfg, p["mlp"], h, policy)
     else:
         m = apply_mlp(cfg, p["mlp"], h, policy)
-    return x + m, aux, None
+    return _act_out(residual(x, m)), aux, None
 
 
 def block_cache_defs(cfg, kind, batch: int, max_seq: int,
@@ -146,15 +164,16 @@ def decode_block(cfg, kind, p, x, cache, pos, policy=DEFAULT_POLICY):
     (a recurrent block's new state is copied into its buffers, or written
     there by the block: mlstm)."""
     _check_kind(cfg, kind)
+    p = gather_fsdp(p)
     if kind in _RECURRENT:
         x, state = _RECURRENT[kind][2](cfg, p, x, cache, policy)
         return x, _write_state(cache, state)
     h = apply_norm(cfg, p["ln1"], x, policy)
     decode = att.mla_decode if cfg.mla is not None else att.attn_decode
     a, cache = decode(cfg, p["attn"], h, cache, pos, policy=policy)
-    x = x + a
+    x = residual(x, a)
     h = apply_norm(cfg, p["ln2"], x, policy)
-    return x + _ff(cfg, kind, p["mlp"], h, policy), cache
+    return residual(x, _ff(cfg, kind, p["mlp"], h, policy)), cache
 
 
 def prefill_block(cfg, kind, p, x, positions, max_cache: int,
@@ -162,6 +181,7 @@ def prefill_block(cfg, kind, p, x, positions, max_cache: int,
     """Full-sequence block that also materializes its decode cache, into
     the buffers ``into`` where given."""
     _check_kind(cfg, kind)
+    p = gather_fsdp(p)
     if kind in _RECURRENT:
         # the full apply already returns the carry state = decode cache
         x, _, cache = apply_block(cfg, kind, p, x, positions, policy)
@@ -174,9 +194,9 @@ def prefill_block(cfg, kind, p, x, positions, max_cache: int,
         a, cache = att.attn_prefill(cfg, p["attn"], h, positions, max_cache,
                                     window=_window(cfg, kind), policy=policy,
                                     into=into)
-    x = x + a
+    x = residual(x, a)
     h = apply_norm(cfg, p["ln2"], x, policy)
-    return x + _ff(cfg, kind, p["mlp"], h, policy), cache
+    return residual(x, _ff(cfg, kind, p["mlp"], h, policy)), cache
 
 
 # --------------------------------------------------------------------------
@@ -234,18 +254,26 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _tokens_in(tokens):
+    """Token ids as the model reads them: on a mesh, a DTensor split over
+    the batch axes before the lookup, so the vocab-parallel lookup's
+    partial sums are reduced over the model axis alone."""
+    return shard_act(replicate(tokens), ("batch", "seq"))
+
+
 def _positions(b: int, s: int, device):
-    return torch.arange(s, device=device)[None].expand(b, s)
+    return replicate(torch.arange(s, device=device)[None].expand(b, s))
 
 
 def _embed_in(cfg, params, tokens, extras, policy):
-    x = embed_tokens(cfg, params["embed"], tokens, policy)
+    x = embed_tokens(cfg, gather_fsdp(params["embed"]), tokens, policy)
     if cfg.family == "vlm" and extras and "vision_embeds" in extras:
-        v = policy.c(extras["vision_embeds"])
+        v = shard_act(replicate(policy.c(extras["vision_embeds"])),
+                      ("batch", "seq", "embed"))
         x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
     if cfg.pos_emb == "learned":
         x = x + policy.c(params["pos"][:tokens.shape[1]])
-    return x
+    return shard_act(x, ("batch", "seq", "embed"))
 
 
 def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
@@ -260,7 +288,7 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
     port draws a random number, and a CUDA graph's capture of the step
     need not read the generator's state."""
     prefix, unit, n_units, tail = stack_plan(cfg)
-    tokens = batch["tokens"]
+    tokens = _tokens_in(batch["tokens"])
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed_in(cfg, params, tokens, batch, policy)
@@ -278,6 +306,7 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
         return x, a_tot
 
     for unit_p in _unstack(params["units"], n_units):
+        x = shard_act(x, ("batch", "seq_saves", "embed"))
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(unit_body, x, unit_p, use_reentrant=False,
                               preserve_rng_state=False)
@@ -288,8 +317,9 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
         x, a, _ = apply_block(cfg, k, p, x, positions, policy)
         aux = aux + a
 
-    x = apply_norm(cfg, params["final"], x, policy)
-    return lm_logits(cfg, params["embed"], x, policy), aux
+    x = apply_norm(cfg, gather_fsdp(params["final"]), x, policy)
+    logits = lm_logits(cfg, gather_fsdp(params["embed"]), x, policy)
+    return shard_act(logits, ("batch", "seq", "vocab")), aux
 
 
 def lm_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
@@ -303,6 +333,7 @@ def lm_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
     writes where a captured decode reads.  The values are the same."""
     prefix, unit, n_units, tail = stack_plan(cfg)
     b, s = tokens.shape
+    tokens = _tokens_in(tokens)
     positions = _positions(b, s, tokens.device)
     x = _embed_in(cfg, params, tokens, extras, policy)
     if cache is None:
@@ -329,8 +360,10 @@ def lm_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
         x, c = prefill_block(cfg, k, p, x, positions, max_cache, policy, o)
         tc.append(c)
 
-    x = apply_norm(cfg, params["final"], x[:, -1:], policy)
-    logits = lm_logits(cfg, params["embed"], x, policy)[:, 0]
+    x = apply_norm(cfg, gather_fsdp(params["final"]), x[:, -1:], policy)
+    logits = shard_act(lm_logits(cfg, gather_fsdp(params["embed"]), x,
+                                 policy)[:, 0],
+                       ("batch", "vocab"))
     if cache is not None:
         return logits, cache
     return logits, {"prefix": pc, "units": _stack(per_layer), "tail": tc}
@@ -342,9 +375,11 @@ def lm_decode(cfg: ArchConfig, params, cache, token, pos,
     Returns (logits (B,V), cache); the cache is updated in place (its
     stacked unit buffers through per-layer views)."""
     prefix, unit, n_units, tail = stack_plan(cfg)
-    x = embed_tokens(cfg, params["embed"], token, policy)
+    token, pos = _tokens_in(token), replicate(pos)
+    x = embed_tokens(cfg, gather_fsdp(params["embed"]), token, policy)
     if cfg.pos_emb == "learned":
         x = x + policy.c(params["pos"][pos])[:, None]
+    x = shard_act(x, ("batch", "seq", "embed"))
 
     for k, p, c0 in zip(prefix, params["prefix"], cache["prefix"]):
         x, _ = decode_block(cfg, k, p, x, c0, pos, policy)
@@ -356,6 +391,8 @@ def lm_decode(cfg: ArchConfig, params, cache, token, pos,
     for k, p, c0 in zip(tail, params["tail"], cache["tail"]):
         x, _ = decode_block(cfg, k, p, x, c0, pos, policy)
 
-    x = apply_norm(cfg, params["final"], x, policy)
-    logits = lm_logits(cfg, params["embed"], x, policy)[:, 0]
+    x = apply_norm(cfg, gather_fsdp(params["final"]), x, policy)
+    logits = shard_act(lm_logits(cfg, gather_fsdp(params["embed"]), x,
+                                 policy)[:, 0],
+                       ("batch", "vocab"))
     return logits, cache

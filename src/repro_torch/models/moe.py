@@ -12,8 +12,14 @@ Every shape is static and nothing reads a value back to the host (no
 ``.item()``, no ``nonzero``, no boolean-mask indexing; ``one_hot`` is given
 its class count), so a step through it can be captured as a CUDA graph.
 At decode (S = 1) the capacity is 1 and the expert products run every
-expert over the token, as the reference's do.  The reference's
-``shard_act`` annotations have no counterpart: one device.
+expert over the token, as the reference's do.
+
+On a mesh the params and activations are DTensors and the reference's
+four ``shard_act`` sites lay them out: the routing mask and the combine
+weights, and the dispatched tokens before and after the experts, split
+over experts (or ``moe_groups``) on the model axis, so each rank runs its
+own experts' products.  The router's softmax and top-k read whole expert
+rows, so the routing is the one-device forward's.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models.layers import DEFAULT_POLICY, Pm, _act, apply_mlp, mlp_defs
 
 GROUP_SIZE = 256
@@ -60,6 +67,7 @@ def route(cfg: ArchConfig, p, xg, policy=DEFAULT_POLICY):
     onehot = F.one_hot(expert_idx, num_classes=e.n_routed).float()
     mask = torch.sum(onehot, dim=3)                             # 0/1 (B,n,G,E)
     gates_e = torch.sum(onehot * gate_vals[..., None], dim=3)  # (B,n,G,E)
+    mask = shard_act(mask, ("batch", "moe_groups", None, "experts"))
     pos = torch.cumsum(mask, dim=2) - 1.0                       # (B,n,G,E)
     keep = mask * (pos < cap)
     return {"probs": probs, "expert_idx": expert_idx, "mask": mask,
@@ -81,13 +89,17 @@ def apply_moe(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY):
 
     slots = F.one_hot(posi, num_classes=cap).to(policy.compute)  # (B,n,G,E,C)
     combine = slots * (keep * r["gates"]).to(policy.compute)[..., None]
+    combine = shard_act(combine,
+                        ("batch", "moe_groups", None, "experts", "expert_cap"))
     dispatch = slots * keep.to(policy.compute)[..., None]
 
     xin = torch.einsum("bngec,bngd->bnecd", dispatch, xg)        # (B,n,E,C,D)
+    xin = shard_act(xin, ("batch", "moe_groups", "experts", None, "embed"))
     h = torch.einsum("bnecd,edf->bnecf", xin, c(p["wi"]))
     g = torch.einsum("bnecd,edf->bnecf", xin, c(p["wg"]))
     h = _act(cfg, g) * h
     out = torch.einsum("bnecf,efd->bnecd", h, c(p["wo"]))
+    out = shard_act(out, ("batch", "moe_groups", "experts", None, "embed"))
     y = torch.einsum("bngec,bnecd->bngd", combine, out).reshape(b, s, d)
 
     if e.n_shared:

@@ -14,10 +14,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import local_map, shard_act
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ref_rglru
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
-                                       apply_norm, mlp_defs, norm_defs)
+                                       apply_norm, mlp_defs, norm_defs,
+                                       residual)
 from repro_torch.models.xlstm import _causal_conv
 
 RG_C = 8.0
@@ -65,9 +67,12 @@ def _softplus(x):
 
 
 def _gates(cfg, p, u, policy):
-    """u (B,S,dr) conv output -> log_a (fp32), scaled input."""
-    r = torch.sigmoid((u @ policy.c(p["w_r"])).float())
-    i = torch.sigmoid((u @ policy.c(p["w_i"])).float())
+    """u (B,S,dr) conv output -> log_a (fp32), scaled input.  The gate
+    products contract over all of d_rnn: on a mesh u is gathered for
+    them once."""
+    uw = shard_act(u, ("batch", "seq", None))
+    r = torch.sigmoid((uw @ policy.c(p["w_r"])).float())
+    i = torch.sigmoid((uw @ policy.c(p["w_i"])).float())
     log_a = -RG_C * _softplus(p["lam"].float()) * r
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * u.float())
@@ -75,9 +80,12 @@ def _gates(cfg, p, u, policy):
 
 
 def _recurrence(a, bterm, h0):
-    if _BACKEND == "kernel":
-        return ops.rglru(a, bterm, h0)
-    return ref_rglru(a, bterm, h0)
+    """The scan over each rank's own ``d_rnn`` channels: it is per
+    channel, so no collective."""
+    scan = ops.rglru if _BACKEND == "kernel" else ref_rglru
+    io = ("batch", None, "d_rnn")
+    return local_map(scan, (a, bterm, h0), (io, io, ("batch", "d_rnn")),
+                     out_like=(0, 2))
 
 
 def rglru_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
@@ -95,9 +103,9 @@ def rglru_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
     h, h_last = _recurrence(a, bterm, h0)
     gate = F.gelu(xi @ c(p["wg"]), approximate="tanh")
     y = (h.to(policy.compute) * gate) @ c(p["wo"])
-    x = x + y
+    x = residual(x, y)
     xj = apply_norm(cfg, p["norm2"], x, policy)
-    x = x + apply_mlp(cfg, p["mlp"], xj, policy)
+    x = residual(x, apply_mlp(cfg, p["mlp"], xj, policy))
     return x, {"conv": new_conv, "h": h_last}
 
 
@@ -111,9 +119,9 @@ def rglru_decode(cfg: ArchConfig, p, x, state, policy=DEFAULT_POLICY):
     h = torch.exp(log_a[:, 0]) * state["h"] + bterm[:, 0]      # (B,dr)
     gate = F.gelu(xi @ c(p["wg"]), approximate="tanh")
     y = (h[:, None].to(policy.compute) * gate) @ c(p["wo"])
-    x = x + y
+    x = residual(x, y)
     xj = apply_norm(cfg, p["norm2"], x, policy)
-    x = x + apply_mlp(cfg, p["mlp"], xj, policy)
+    x = residual(x, apply_mlp(cfg, p["mlp"], xj, policy))
     return x, {"conv": new_conv, "h": h}
 
 

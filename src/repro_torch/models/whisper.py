@@ -6,8 +6,12 @@ The conv audio frontend is a stub, as in the reference: ``frames``
 encoder adds fixed sinusoidal positions and runs non-causal blocks; the
 decoder runs causal self-attention + cross-attention blocks with learned
 positions.  Shapes interpret seq_len as the decoder length.  The reference
-scans the stacked blocks; here a Python loop indexes their L dim.  Its
-``shard_act`` calls are the identity on one device and are left out.
+scans the stacked blocks; here a Python loop indexes their L dim.  On a
+mesh the params, the frames and the cache are DTensors: the frames are
+laid out at the reference's ``shard_act`` of the encoder input and the
+logits at that of the forward's output, each residual add reduces its
+row-parallel product (``layers.residual``), and an FSDP-split block is
+gathered for its use.
 
 The cache holds, per decoder block, the self-attention K/V (written by
 the prefill, updated in place by each decode step) and the cross K/V of
@@ -16,15 +20,19 @@ the encoder memory (written by the prefill, read-only after).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (gather_fsdp, replicate,
+                                              shard_act)
 from repro_torch.models import attention as att
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
                                        apply_norm, embed_defs, embed_tokens,
                                        lm_logits, mlp_defs, norm_defs,
-                                       sincos_table)
-from repro_torch.models.model import _positions, _stack, _unstack
+                                       residual, sincos_table)
+from repro_torch.models.model import (_positions, _stack, _tokens_in,
+                                     _unstack)
 from repro_torch.models.params import stack_defs
 
 
@@ -53,30 +61,42 @@ def whisper_param_defs(cfg: ArchConfig, max_seq: int):
 def encode(cfg: ArchConfig, params, frames, policy=DEFAULT_POLICY):
     """frames (B,F,D) stub embeddings -> encoder memory (B,F,D)."""
     f = frames.shape[1]
-    x = policy.c(frames) + policy.c(sincos_table(f, cfg.d_model,
-                                                 frames.device))
-    positions = torch.arange(f, device=frames.device)
+    x = policy.c(replicate(frames)) + policy.c(replicate(
+        sincos_table(f, cfg.d_model, frames.device)))
+    x = shard_act(x, ("batch", "frames", "embed"))
+    positions = replicate(torch.arange(f, device=frames.device))
     for p in _unstack(params["enc_blocks"], cfg.encoder.n_layers):
+        p = gather_fsdp(p)
         h = apply_norm(cfg, p["ln1"], x, policy)
-        x = x + att.attn_forward(cfg, p["attn"], h, positions, policy=policy,
-                                 causal=False, q_chunk=min(1024, f))
+        x = residual(x, att.attn_forward(cfg, p["attn"], h, positions,
+                                         policy=policy, causal=False,
+                                         q_chunk=min(1024, f)))
         h = apply_norm(cfg, p["ln2"], x, policy)
-        x = x + apply_mlp(cfg, p["mlp"], h, policy)
-    return apply_norm(cfg, params["enc_final"], x, policy)
+        x = residual(x, apply_mlp(cfg, p["mlp"], h, policy))
+    return apply_norm(cfg, gather_fsdp(params["enc_final"]), x, policy)
 
 
 def _dec_in(cfg, params, tokens, policy):
-    x = embed_tokens(cfg, params["embed"], tokens, policy)
-    return x + policy.c(params["pos"][:tokens.shape[1]])
+    x = embed_tokens(cfg, gather_fsdp(params["embed"]), tokens, policy)
+    x = x + policy.c(gather_fsdp(params["pos"])[:tokens.shape[1]])
+    return shard_act(x, ("batch", "seq", "embed"))
+
+
+def _logits(cfg, params, x, policy):
+    x = apply_norm(cfg, gather_fsdp(params["final"]), x, policy)
+    return lm_logits(cfg, gather_fsdp(params["embed"]), x, policy)
 
 
 def _dec_block(cfg, p, x, positions, mem, policy):
+    p = gather_fsdp(p)
     h = apply_norm(cfg, p["ln1"], x, policy)
-    x = x + att.attn_forward(cfg, p["self_attn"], h, positions, policy=policy)
+    x = residual(x, att.attn_forward(cfg, p["self_attn"], h, positions,
+                                     policy=policy))
     h = apply_norm(cfg, p["lnx"], x, policy)
-    x = x + att.cross_attn_forward(cfg, p["cross_attn"], h, mem, policy=policy)
+    x = residual(x, att.cross_attn_forward(cfg, p["cross_attn"], h, mem,
+                                           policy=policy))
     h = apply_norm(cfg, p["ln2"], x, policy)
-    return x + apply_mlp(cfg, p["mlp"], h, policy)
+    return residual(x, apply_mlp(cfg, p["mlp"], h, policy))
 
 
 def whisper_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
@@ -86,7 +106,7 @@ def whisper_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
     ``torch.utils.checkpoint``, as the reference checkpoints its body (no
     RNG state stashed: nothing here draws one, as ``lm_forward`` says)."""
     mem = encode(cfg, params, batch["frames"], policy)
-    tokens = batch["tokens"]
+    tokens = _tokens_in(batch["tokens"])
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _dec_in(cfg, params, tokens, policy)
@@ -96,9 +116,9 @@ def whisper_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
                            use_reentrant=False, preserve_rng_state=False)
         else:
             x = _dec_block(cfg, p, x, positions, mem, policy)
-    x = apply_norm(cfg, params["final"], x, policy)
-    return (lm_logits(cfg, params["embed"], x, policy),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    logits = shard_act(_logits(cfg, params, x, policy),
+                       ("batch", "seq", "vocab"))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def whisper_cache_defs(cfg: ArchConfig, batch: int, max_seq: int,
@@ -125,6 +145,7 @@ def whisper_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
     ``lm_prefill`` does."""
     c = policy.c
     mem = encode(cfg, params, extras["frames"], policy)
+    tokens = _tokens_in(tokens)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _dec_in(cfg, params, tokens, policy)
@@ -132,14 +153,15 @@ def whisper_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
     outs = [None] * n if cache is None else _unstack(cache["dec"], n)
     caches = []
     for p, o in zip(_unstack(params["dec_blocks"], n), outs):
+        p = gather_fsdp(p)
         h = apply_norm(cfg, p["ln1"], x, policy)
         a, self_cache = att.attn_prefill(cfg, p["self_attn"], h, positions,
                                          max_cache, policy=policy,
                                          into=None if o is None else o["self"])
-        x = x + a
+        x = residual(x, a)
         h = apply_norm(cfg, p["lnx"], x, policy)
-        x = x + att.cross_attn_forward(cfg, p["cross_attn"], h, mem,
-                                       policy=policy)
+        x = residual(x, att.cross_attn_forward(cfg, p["cross_attn"], h, mem,
+                                               policy=policy))
         ck = torch.einsum("bfd,dhk->bfhk", mem,
                           c(p["cross_attn"]["wk"])).to(x.dtype)
         cv = torch.einsum("bfd,dhk->bfhk", mem,
@@ -147,10 +169,10 @@ def whisper_prefill(cfg: ArchConfig, params, tokens, extras, max_cache: int,
         if o is not None:
             ck, cv = o["cross"]["k"].copy_(ck), o["cross"]["v"].copy_(cv)
         h = apply_norm(cfg, p["ln2"], x, policy)
-        x = x + apply_mlp(cfg, p["mlp"], h, policy)
+        x = residual(x, apply_mlp(cfg, p["mlp"], h, policy))
         caches.append({"self": self_cache, "cross": {"k": ck, "v": cv}})
-    x = apply_norm(cfg, params["final"], x[:, -1:], policy)
-    logits = lm_logits(cfg, params["embed"], x, policy)[:, 0]
+    logits = shard_act(_logits(cfg, params, x[:, -1:], policy)[:, 0],
+                       ("batch", "vocab"))
     if cache is not None:
         return logits, cache
     return logits, {"dec": _stack(caches)}
@@ -174,18 +196,23 @@ def whisper_decode(cfg: ArchConfig, params, cache, token, pos,
     """One-token step.  token (B,1), pos (B,).  Returns (logits (B,V),
     cache); each block's self K/V is updated in place, its cross K/V only
     read."""
-    x = embed_tokens(cfg, params["embed"], token, policy)
-    x = x + policy.c(params["pos"][pos])[:, None]
+    token, pos = _tokens_in(token), replicate(pos)
+    x = embed_tokens(cfg, gather_fsdp(params["embed"]), token, policy)
+    x = x + policy.c(F.embedding(pos, gather_fsdp(params["pos"])))[:, None]
+    x = shard_act(x, ("batch", "seq", "embed"))
     n = cfg.n_layers
     for p, cc in zip(_unstack(params["dec_blocks"], n),
                      _unstack(cache["dec"], n)):
+        p = gather_fsdp(p)
         h = apply_norm(cfg, p["ln1"], x, policy)
         a, _ = att.attn_decode(cfg, p["self_attn"], h, cc["self"], pos,
                                policy=policy)
-        x = x + a
+        x = residual(x, a)
         h = apply_norm(cfg, p["lnx"], x, policy)
-        x = x + _cross_decode(cfg, p["cross_attn"], h, cc["cross"], policy)
+        x = residual(x, _cross_decode(cfg, p["cross_attn"], h, cc["cross"],
+                                      policy))
         h = apply_norm(cfg, p["ln2"], x, policy)
-        x = x + apply_mlp(cfg, p["mlp"], h, policy)
-    x = apply_norm(cfg, params["final"], x, policy)
-    return lm_logits(cfg, params["embed"], x, policy)[:, 0], cache
+        x = residual(x, apply_mlp(cfg, p["mlp"], h, policy))
+    logits = shard_act(_logits(cfg, params, x, policy)[:, 0],
+                       ("batch", "vocab"))
+    return logits, cache

@@ -25,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import DEFAULT_POLICY, Pm, apply_norm, norm_defs
+from repro_torch.distributed.sharding import replicate, shard_act
+from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_norm,
+                                       norm_defs, residual)
 
 CHUNK = 256
 
@@ -62,8 +64,9 @@ def mlstm_defs(cfg: ArchConfig):
 def _causal_conv(u, w, state=None):
     """Depthwise causal conv. u (B,S,F), w (cw,F). state (B,cw-1,F) or None."""
     cw = w.shape[0]
-    pad = state if state is not None else torch.zeros(
-        (u.shape[0], cw - 1, u.shape[2]), dtype=u.dtype, device=u.device)
+    # zeros_like: on a mesh the pad is laid out as u
+    pad = state if state is not None else torch.zeros_like(
+        u[:, :1]).expand(-1, cw - 1, -1)
     up = torch.cat([pad, u], dim=1)
     out = sum(up[:, i:i + u.shape[1]] * w[i] for i in range(cw))
     return out, up[:, -(cw - 1):]                    # (B,S,F), new state
@@ -104,7 +107,7 @@ def _mlstm_out(cfg, p, x, hout, z, policy):
     var = torch.mean(hn * hn, dim=-1, keepdim=True)
     hout = (hn * torch.rsqrt(var + cfg.norm_eps) * p["hnorm"]).to(
         policy.compute)
-    return x + (hout * F.silu(z)) @ policy.c(p["wdown"])
+    return residual(x, (hout * F.silu(z)) @ policy.c(p["wdown"]))
 
 
 def _chunk_step(C, n, m, qc, kc, vc, li, lf):
@@ -116,8 +119,8 @@ def _chunk_step(C, n, m, qc, kc, vc, li, lf):
     Fc = torch.cumsum(lf, dim=1)                             # inclusive
     # decay of (k_j, v_j) arriving at i: F_i - F_j + li_j (j <= i)
     Dij = Fc[:, :, None] - Fc[:, None, :] + li[:, None, :]   # (B,L,L,H)
-    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
-                                   device=qc.device))[None, :, :, None]
+    causal = replicate(torch.tril(torch.ones(
+        (L, L), dtype=torch.bool, device=qc.device)))[None, :, :, None]
     Dij = torch.where(causal, Dij, -torch.inf)
     m_intra = torch.amax(Dij, dim=2)                         # (B,L,H)
     m_inter = Fc + m[:, None]
@@ -155,9 +158,10 @@ def mlstm_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
     q, k, v, logi, logf, z, new_conv = _mlstm_in(
         cfg, p, x, None if state is None else state["conv"], policy)
     if state is None:
-        C = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-        n = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
-        m = torch.full((b, h), -1e30, dtype=torch.float32, device=x.device)
+        # zeros_like: on a mesh the carry is laid out as q's heads
+        n = torch.zeros_like(q[:, 0], dtype=torch.float32)          # (B,H,hd)
+        C = n[..., None].expand(-1, -1, -1, hd).contiguous()
+        m = torch.full_like(n[..., 0], -1e30)
     else:
         C, n, m = state["C"], state["n"], state["m"]
 
@@ -273,11 +277,13 @@ def slstm_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
     hd = d // h
     xi = apply_norm(cfg, p["norm"], x, policy)
     gx = (xi @ c(p["wx"])).reshape(b, s, 4, h, hd).float()
+    # on a mesh wx's split of 4·d lands on the gate dim: each rank takes
+    # all four gates of its own heads, as its recurrent weights are split
+    gx = shard_act(gx, ("batch", None, None, "heads", None))
     if state is None:
-        zero = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
+        zero = torch.zeros_like(gx[:, 0, 0])        # (B,H,hd), laid as gx
         state = {"c": zero, "n": zero + 1e-6, "h": zero,
-                 "m": torch.full((b, h, hd), -1e30, dtype=torch.float32,
-                                 device=x.device)}
+                 "m": torch.full_like(zero, -1e30)}
     rr = _r_heads(p["r"])
     hs = []
     for t in range(s):
@@ -286,12 +292,12 @@ def slstm_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
     hseq = torch.stack(hs, dim=1).reshape(b, s, d)
     hn = hseq * torch.rsqrt(torch.mean(hseq * hseq, dim=-1, keepdim=True)
                             + cfg.norm_eps)
-    y = x + (hn * p["hnorm"]).to(policy.compute)
+    y = residual(x, (hn * p["hnorm"]).to(policy.compute))
     # gated FFN (4/3), GELU in jax.nn.gelu's default tanh form
     xj = apply_norm(cfg, p["norm2"], y, policy)
     ff = (F.gelu(xj @ c(p["ffn_wg"]), approximate="tanh")
           * (xj @ c(p["ffn_wi"]))) @ c(p["ffn_wo"])
-    return y + ff, state
+    return residual(y, ff), state
 
 
 def slstm_decode(cfg: ArchConfig, p, x, state, policy=DEFAULT_POLICY):

@@ -1,5 +1,6 @@
 """Batched serving engine (torch twin of ``repro.serve.engine``): prefill +
-decode with a KV cache, greedy sampling, on one device, and a
+decode with a KV cache, greedy sampling, on one device or across the
+ranks of a mesh (``ServeEngine``'s ``mesh``), and a
 checkpointable serving state (cache + positions + generated tokens): the
 service can be drained, snapshotted in the reference's checkpoint format,
 and restored by either package.
@@ -33,12 +34,15 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.sharding import (ShardingRules, is_dtensor,
-                                              sharding_ctx)
+                                              lay_out, lay_out_zeros,
+                                              layout_for, sharding_ctx,
+                                              window)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.attention import get_attention_backend
 from repro_torch.models.layers import DEFAULT_POLICY, Policy
-from repro_torch.models.params import is_pm, tree_map
+from repro_torch.models.params import (is_pm, tree_leaves, tree_map,
+                                      tree_unflatten)
 from repro_torch.models.registry import get_api
 from repro_torch.models.rglru import get_recurrence_backend
 
@@ -74,10 +78,16 @@ class ServeEngine:
     """``mesh`` and ``rules`` (both or neither) run the prefill and decode
     steps inside ``sharding_ctx(mesh, rules)``, on the graph path too, as
     the reference's programs do, and put the engine on the mesh's device.
-    The forward runs on plain tensors: a DTensor leaf must hold its whole
-    tensor on this rank (a replicated layout, or a 1-rank mesh) and is
-    served through its local tensor, with no copy; a sharded forward
-    waits for its slice (ROADMAP.md, Queue 1, item 6b)."""
+
+    On a mesh the forward runs on DTensors (the sharded forward): plain
+    params are laid out by the rules (``param_shardings``' layout of
+    each leaf), leaves that already are DTensors on the mesh (an
+    ``elastic_restore``) are served as they are, and the cache buffers
+    are laid out by the cache defs; each rank holds its windows only.
+    Prompts enter split over the batch axes where B divides them, the
+    logits come out split over the vocab, and greedy sampling picks each
+    row's first maximum across the vocab shards without gathering them:
+    the tokens are whole on every rank."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_seq: int,
                  policy: Policy = DEFAULT_POLICY, device="cuda", mesh=None,
@@ -91,8 +101,16 @@ class ServeEngine:
         self.max_seq = max_seq
         self.policy = policy
         self.api = get_api(cfg)
-        self.params = policy.cast_params(
-            tree_map(lambda x: _whole(x).to(self.device), params))
+        #: the forward runs on DTensors
+        self.sharded = mesh is not None
+        if self.sharded:
+            params = self._lay_out(params)
+        elif any(is_dtensor(t) for t in tree_leaves(params)):
+            raise ValueError("DTensor params are served on their mesh: "
+                             "pass the engine's mesh and rules")
+        else:
+            params = tree_map(lambda x: x.to(self.device), params)
+        self.params = policy.cast_params(params)
         self.cache = None
         self.pos = None
         self.generated: List[np.ndarray] = []
@@ -105,8 +123,39 @@ class ServeEngine:
         self._pool = None
         self._stream = None
 
+    def _lay_out(self, params):
+        """Each leaf as a DTensor on the mesh: a plain one laid out by its
+        def's logical axes (its own shape: a learned ``pos`` table need not
+        be ``max_seq`` long), a DTensor kept as it is laid out."""
+        defs = tree_leaves(self.api.param_defs(self.cfg, self.max_seq),
+                           is_leaf=is_pm)
+        out = []
+        for t, d in zip(tree_leaves(params), defs):
+            if is_dtensor(t):
+                if t.device_mesh != self.mesh:
+                    raise ValueError("a DTensor leaf on another mesh than "
+                                     "the engine's")
+                out.append(t)
+            else:
+                out.append(lay_out(t, layout_for(d.logical, t.shape,
+                                                 self.mesh, self.rules,
+                                                 fsdp=True)))
+        return tree_unflatten(params, out)
+
+    def last_logits(self, b: int) -> torch.Tensor:
+        """The last step's logits of batch size ``b``, whole on every rank
+        (gathered across the vocab shards on a mesh)."""
+        logits = self._batches[b].logits
+        return logits.full_tensor() if is_dtensor(logits) else logits
+
     # ------------------------------------------------------------- generate
-    @torch.inference_mode()
+    def no_grad(self):
+        """The engine's steps run without autograd: under inference mode,
+        and on DTensors under ``no_grad`` (DTensor cannot make views in
+        inference mode: "Cannot set version_counter for inference
+        tensor")."""
+        return torch.no_grad() if self.sharded else torch.inference_mode()
+
     def generate(self, prompts: np.ndarray, n_new: int,
                  extras: Optional[dict] = None) -> GenResult:
         """prompts (B, P) equal-length token batch; greedy decode n_new.
@@ -114,6 +163,10 @@ class ServeEngine:
         request of a key also pays its captures, as the reference's first
         call pays its compile.  ``n_new=0`` gives what the reference gives:
         the prefill's greedy token, (B, 1), and ``pos`` = P + 1."""
+        with self.no_grad():
+            return self._generate(prompts, n_new, extras)
+
+    def _generate(self, prompts, n_new, extras) -> GenResult:
         b, p = prompts.shape
         n_out = max(n_new, 1)               # the prefill's token, always
         if n_new < 0 or p + n_out > self.max_seq:
@@ -150,28 +203,39 @@ class ServeEngine:
         if b not in self._batches:
             dev, compute = self.device, self.policy.compute
             defs = self.api.cache_defs(self.cfg, b, self.max_seq, compute)
+            v = self.cfg.vocab_size
             self._batches[b] = _Batch(
-                cache=tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
-                                                     device=dev),
+                cache=tree_map(lambda d: self._zeros(d.shape, d.dtype,
+                                                     d.logical, fsdp=True),
                                defs, is_leaf=is_pm),
                 seq=torch.zeros((b, self.max_seq), dtype=torch.long,
                                 device=dev),
                 pos=torch.zeros((b,), dtype=torch.long, device=dev),
-                logits=torch.zeros((b, self.cfg.vocab_size), dtype=compute,
-                                   device=dev))
+                logits=self._zeros((b, v), compute, ("batch", "vocab")))
         return self._batches[b]
+
+    def _zeros(self, shape, dtype, logical, fsdp=False):
+        """A buffer: on a mesh a DTensor laid out by ``logical`` (a cache
+        leaf as ``param_shardings`` lays it, an activation as
+        ``shard_act``), each rank holding its window."""
+        if not self.sharded:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return lay_out_zeros(shape, dtype, layout_for(
+            logical, shape, self.mesh, self.rules, fsdp=fsdp))
 
     def _prompt(self, tokens, extras) -> _Prompt:
         """The static inputs of this prefill shape, filled with this
-        request's."""
+        request's.  On a mesh the tokens are split over the batch axes
+        where B divides them; each rank copies in its rows."""
         key = (tuple(tokens.shape), tuple(sorted(
             (k, tuple(x.shape), x.dtype) for k, x in extras.items())))
         if key not in self._prompts:
             self._prompts[key] = _Prompt(
-                key, torch.empty_like(tokens),
+                key, self._zeros(tuple(tokens.shape), tokens.dtype,
+                                 ("batch", "seq")),
                 {k: torch.empty_like(x) for k, x in extras.items()})
         prompt = self._prompts[key]
-        prompt.tokens.copy_(tokens)
+        _fill(prompt.tokens, tokens)
         for k, x in extras.items():
             prompt.extras[k].copy_(x)
         return prompt
@@ -189,7 +253,7 @@ class ServeEngine:
                                          self.max_seq, self.policy,
                                          cache=batch.cache)
         batch.logits.copy_(logits)
-        batch.seq[:, p] = torch.argmax(logits, dim=-1)
+        batch.seq[:, p] = _greedy(logits)
         batch.pos.fill_(p)
 
     def _decode_step(self, batch: _Batch) -> None:
@@ -199,7 +263,7 @@ class ServeEngine:
                                         batch.seq.gather(1, at), batch.pos,
                                         self.policy)
         batch.logits.copy_(logits)
-        batch.seq.scatter_(1, at + 1, torch.argmax(logits, dim=-1)[:, None])
+        batch.seq.scatter_(1, at + 1, _greedy(logits)[:, None])
         batch.pos.add_(1)
 
     # --------------------------------------------------------------- graphs
@@ -275,15 +339,41 @@ class ServeEngine:
         mgr.wait()
 
 
-def _whole(x):
-    """A leaf as a plain tensor: a DTensor's local tensor, which must be
-    the whole tensor (no copy is made)."""
-    if not is_dtensor(x):
-        return x
-    local = x.to_local()
-    if local.shape != x.shape:
-        raise NotImplementedError(
-            f"a leaf sharded as {x.placements} on this rank "
-            f"({tuple(local.shape)} of {tuple(x.shape)}): the sharded "
-            f"forward waits for its slice (ROADMAP.md, Queue 1, item 6b)")
-    return local
+def _fill(buf, whole) -> None:
+    """Copy the whole tensor ``whole`` into the buffer ``buf``: on a mesh
+    each rank copies its window into its shard."""
+    if not is_dtensor(buf):
+        buf.copy_(whole)
+        return
+    mesh = buf.device_mesh
+    win = window(buf.placements, tuple(buf.shape), tuple(mesh.shape),
+                 mesh.get_coordinate())
+    buf.to_local().copy_(whole[tuple(slice(a, b) for a, b in win)])
+
+
+def _greedy(logits) -> torch.Tensor:
+    """Each row's greedy token (B,), whole and plain on every rank.  Over
+    DTensor logits each rank takes the first maximum of its own rows and
+    vocab window; the (value, index) pairs of every window are gathered,
+    2·B numbers a shard, and the first window holding the row's largest
+    value wins: ``torch.argmax``'s first maximum, with no gather of the
+    logits themselves."""
+    if not is_dtensor(logits):
+        return torch.argmax(logits, dim=-1)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = logits.device_mesh
+    local = logits.to_local()
+    start = window(logits.placements, tuple(logits.shape), tuple(mesh.shape),
+                   mesh.get_coordinate())[1][0]
+    idx = torch.argmax(local, dim=-1, keepdim=True)
+    val = local.gather(-1, idx)
+    # one column per vocab window, in vocab order; rows split as the logits'
+    places = [Shard(1) if p.is_shard(1) else Shard(0) if p.is_shard(0)
+              else Replicate() for p in logits.placements]
+
+    def whole(t):
+        return DTensor.from_local(t, mesh, places,
+                                  run_check=False).full_tensor()
+    vals, idxs = whole(val), whole(idx + start)
+    best = torch.argmax(vals, dim=1, keepdim=True)
+    return idxs.gather(1, best)[:, 0]

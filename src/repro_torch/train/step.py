@@ -7,11 +7,11 @@ written into its state: every leaf of the TrainState gets its new value in
 place, bit for bit the pure step's.  ``GraphedTrainStep`` captures that
 in-place step as one CUDA graph and replays it, the counterpart of the
 reference's ``jax.jit(step_fn, donate_argnums=(0,))``
-(``repro/train/loop.py:64``).  The reference attaches shardings here; the
-port runs on one device, so there is no mesh or rules argument (as in the
-serve CLI), and ``make_serve_fns`` and ``dryrun_spec`` are left out:
-serving goes through ``serve/engine.py``, and the dry-run is ROADMAP.md,
-Queue 1, item 7.
+(``repro/train/loop.py:64``).  The reference attaches shardings to its
+train step here; the port's trains on one device (training on DTensors
+is ROADMAP.md, Queue 1, item 6b-train), and ``dryrun_spec`` is item 7.
+``make_serve_fns`` is the reference's: the prefill and decode with the
+sharding context installed, the forward the engine runs on a mesh.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed.sharding import ShardingRules, sharding_ctx
 from repro_torch.kernels import ops
 from repro_torch.models.attention import get_attention_backend
 from repro_torch.models.layers import DEFAULT_POLICY, Policy
@@ -171,6 +172,31 @@ def make_train_step_(cfg: ArchConfig, *,
         return {"loss": loss, "aux_loss": aux, "lr": lr, **om}
 
     return train_step_
+
+
+def make_serve_fns(cfg: ArchConfig, mesh, rules: ShardingRules, *,
+                   policy: Policy = DEFAULT_POLICY, max_cache: int = 0):
+    """(prefill_fn, decode_fn) with the sharding context installed, as the
+    reference's (``repro/train/step.py:135-149``): ``prefill(params,
+    batch)`` with ``batch = {"tokens", **extras}`` and ``decode(params,
+    cache, token, pos)``.  On a mesh the params and the cache are DTensors
+    laid out by ``param_shardings`` (``ServeEngine`` lays them out so);
+    the token ids, positions and extras may be plain, whole on every
+    rank.  The logits come out split over the vocab."""
+    api = get_api(cfg)
+
+    def prefill(params, batch):
+        with sharding_ctx(mesh, rules):
+            tokens = batch["tokens"]
+            extras = {k: v for k, v in batch.items() if k != "tokens"}
+            return api.prefill(cfg, params, tokens, extras,
+                               max_cache or tokens.shape[1], policy)
+
+    def decode(params, cache, token, pos):
+        with sharding_ctx(mesh, rules):
+            return api.decode(cfg, params, cache, token, pos, policy)
+
+    return prefill, decode
 
 
 class GraphedTrainStep:

@@ -319,6 +319,44 @@ def test_chip_smoke_elastic_phase_on_cpu(smoke, capsys, monkeypatch):
         assert r["baseline"]["leaves_equal"] and r["fsdp"]["leaves_equal"]
 
 
+def test_chip_smoke_sharded_phase_on_cpu(smoke, capsys, monkeypatch):
+    """The sharded phase at smoke widths: the hybrid through the engine on
+    this process's 1-rank mesh beside the plain engine over the same
+    storage (one flash launch per local_attn block, one RG-LRU launch per
+    rglru block, through local_map), bit-equal captured and uncaptured; a
+    fresh process's first DTensor; a 2-rank CPU world at the smoke widths
+    (the card's run adds a 4-rank one), cut to 2 layers, each rank
+    holding its windows."""
+    monkeypatch.setattr(smoke, "SHARDED", dict(
+        smoke.SHARDED, new_tokens=4, worlds=((2, (1, 2)),)))
+    counts = smoke.phase_sharded("cpu rehearsal, 0 W")
+    kinds = ARCHS[smoke.HYBRID].layer_kinds()
+    assert counts == {"flash_attention_fwd": kinds.count("local_attn"),
+                      "rglru_scan": kinds.count("rglru"),
+                      "quantize_int8": 0, "dequantize_int8": 0}
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "sharded"'))
+    assert line["ok"] and line["storage_shared"]
+    assert line["tokens_equal"] and line["logits_equal"]
+    assert line["uncaptured_tokens_equal"]
+    for name in ("plain", "sharded"):
+        assert line[name]["decode_step_ms"] > 0
+        assert line[name]["uncaptured_decode_step_ms"] > 0
+    assert line["first_dtensor"]["first_op_s"] > 0
+    runs = line["worlds"]["runs"]
+    assert [(w["ranks"], w["mesh"]) for w in runs] == [
+        (2, {"data": 1, "model": 2})]
+    for w in runs:
+        for r in w["per_rank"]:
+            assert r["tokens_equal"] and len(r["block_max_abs_diff"]) == 2
+            assert r["param_bytes"] == r["param_window_bytes"] \
+                < r["param_bytes_whole"]
+            assert r["cache_bytes"] == r["cache_window_bytes"]
+            # the smoke widths' 4 heads divide model = 2 (dim 2 of the
+            # stacked (L, D, H, hd) wq)
+            assert "Shard(dim=2)" in r["split"]["wq"]
+
+
 def test_chip_smoke_elastic_phase_fails_on_a_corrupted_shard(smoke, capsys,
                                                              monkeypatch):
     """One element of rank 1's restored shard changed in the 2-rank world:

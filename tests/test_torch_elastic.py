@@ -464,7 +464,8 @@ def test_mesh_on_cuda_without_a_card_raises(monkeypatch):
 def test_engine_serves_a_restored_tree_on_a_mesh(tmp_path):
     """ServeEngine(mesh, rules) over the DTensors of an elastic restore
     gives the tokens and last logits of an engine over the plain tree,
-    bit for bit; a leaf sharded on this rank is refused."""
+    bit for bit; the restored DTensors are served as they are, and a
+    plain engine refuses them."""
     cfg, defs, params = _port_params()
     mgr = CheckpointManager(tmp_path)
     mgr.save(0, params)
@@ -478,22 +479,13 @@ def test_engine_serves_a_restored_tree_on_a_mesh(tmp_path):
     plain = ServeEngine(cfg, params, max_seq=MAX_SEQ, policy=policy,
                         device="cpu")
     a, b = on_mesh.generate(prompts, 6), plain.generate(prompts, 6)
+    assert on_mesh.params["final"]["scale"] is state["final"]["scale"]
     assert np.array_equal(a.tokens, b.tokens)
-    assert torch.equal(on_mesh._batches[2].logits, plain._batches[2].logits)
+    assert torch.equal(on_mesh.last_logits(2), plain.last_logits(2))
     with pytest.raises(ValueError, match="together"):
         ServeEngine(cfg, params, max_seq=MAX_SEQ, mesh=mesh)
-
-    class Sharded:                 # what a DTensor split over two ranks is
-        shape = torch.Size([4])
-        placements = ("Shard(dim=0)",)
-
-        def to_local(self):
-            return torch.zeros(2)
-    from repro_torch.serve import engine as t_engine
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(t_engine, "is_dtensor", lambda x: isinstance(x, Sharded))
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            t_engine._whole(Sharded())
+    with pytest.raises(ValueError, match="mesh and rules"):
+        ServeEngine(cfg, state, max_seq=MAX_SEQ, device="cpu")
 
 
 def test_serve_cli_variant_and_model_parallel(capsys):
