@@ -165,6 +165,20 @@ one JSON line each; any failure exits non-zero:
                  then the full-width fp32 TrainState (params, m, v, the
                  uint32 rng key) saved and restored onto the card bit for
                  bit, with its times
+  train-sharded  the loop on the card's one-rank DeviceMesh,
+                 train.loop.train(cfg, mesh, rules), smollm-135m at TRAIN's
+                 full width and shape under baseline and fsdp, each step
+                 the replay of the sharded step's graph (the flash kernel
+                 through local_map, 60 launches a step), beside the plain
+                 loop from the same seed under deterministic algorithms:
+                 losses and final TrainStates bit-equal; a sharded run
+                 crashed after step 5 resumed on one device and on the
+                 mesh, each bit-equal to the uninterrupted one; the eager
+                 and graphed sharded step (step_s, capture_s, a profile
+                 of each: busy share, device ops; the plain step's: the
+                 train phase);
+                 one step of a 2-rank CPU gloo world at (1, 2), the
+                 widths cut to 2 layers, fp32, against the one-device step
   train-families the loop's graphed step for every other family it trains,
                  at full published widths and a depth cut, B=4, seq 256:
                  recurrentgemma-9b (5 layers; recurrence on its plain scan,
@@ -337,6 +351,15 @@ ADAMW_TOL = 1e-5
 GRAPH_CHECK_STEPS = 3
 # train-families: S <= 256, as one MoE group and one mLSTM chunk need
 FAMILY_TRAIN = dict(batch=4, seq=256)
+# train-sharded: TRAIN's loop on the card's one-rank mesh under each
+# variant, a sharded run crashed after fail_at; its CPU world: one step of
+# ARCH's widths cut to `layers`, fp32, Adam's eps raised so the first
+# update is a smooth function of the gradient (tests/test_torch_sharded_
+# train.py), each leaf within tol of its scale or twice its noise floor
+TRAIN_SHARDED = dict(variants=("baseline", "fsdp"), fail_at=5,
+                     world=dict(ranks=2, mesh=(1, 2), rules="baseline",
+                                layers=2, batch=2, seq=128, eps=1e-3,
+                                tol=1e-5, world_timeout_s=300))
 
 
 class PhaseFailed(Exception):
@@ -1156,7 +1179,9 @@ def _leaves_equal(a, b) -> bool:
         return False
     for (_, x), (_, y) in zip(la, lb):
         x, y = (torch.as_tensor(np.asarray(t)) if not isinstance(t, torch.Tensor)
-                else t.cpu() for t in (x, y))
+                else t for t in (x, y))
+        if x.device != y.device:        # compared where both live
+            x, y = x.cpu(), y.cpu()
         if x.dtype != y.dtype or not torch.equal(x, y):
             return False
     return True
@@ -2515,8 +2540,9 @@ def _step_update_against_plain_adamw(cfg):
     from repro_torch.train.state import make_train_state
     from repro_torch.train.step import loss_and_grads, make_train_step
     t = TRAIN
-    step = make_train_step(cfg, base_lr=t["lr"], warmup=t["warmup"],
-                           total_steps=t["steps"], max_seq=t["seq"])
+    step, _ = make_train_step(cfg, None, None, base_lr=t["lr"],
+                              warmup=t["warmup"], total_steps=t["steps"],
+                              max_seq=t["seq"])
     state = make_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
                              t["seq"], device=DEV)
     batch = {k: torch.as_tensor(v, device=DEV) for k, v in TokenPipeline(
@@ -2596,12 +2622,15 @@ def profile_step(fn, top: int = 20) -> dict:
                     for e in events[:top]]}
 
 
-def _train(cfg, **kw):
+def _train(cfg, mesh=None, rules=None, **kw):
+    """``train.loop.train`` at TRAIN's shape: on ``mesh`` by ``rules``, or
+    plain on DEV."""
     from repro_torch.train.loop import train
     t = TRAIN
-    return train(cfg, n_steps=t["steps"], global_batch=t["batch"],
-                 seq_len=t["seq"], base_lr=t["lr"], warmup=t["warmup"],
-                 seed=t["seed"], log_every=1, device=DEV, **kw)
+    return train(cfg, mesh, rules, n_steps=t["steps"],
+                 global_batch=t["batch"], seq_len=t["seq"], base_lr=t["lr"],
+                 warmup=t["warmup"], seed=t["seed"], log_every=1,
+                 device=DEV, **kw)
 
 
 def _train_batch(cfg, host_batch, b) -> dict:
@@ -2621,12 +2650,13 @@ def _step_kw(seq) -> dict:
                 max_seq=seq)
 
 
-def _train_step_before_after(cfg) -> dict:
-    """The main path's step at full width from one state and batch: eager
-    (the pure step, every op dispatched from Python: the numbers before)
-    and as the loop runs it (on CUDA the replay of its graph: after).
-    Each: the step time (median of GRAPH_CHECK_STEPS steps after a
-    warm-up, which for the graph is its capture; each step ended by the
+def _train_step_before_after(cfg, mesh=None, rules=None) -> dict:
+    """The main path's step at full width from one state and batch (on
+    ``mesh`` by ``rules``, the state laid out by ``state_shardings``):
+    eager (the pure step, every op dispatched from Python: the numbers
+    before) and as the loop runs it (on CUDA the replay of its graph:
+    after).  Each: the step time (median of GRAPH_CHECK_STEPS steps after
+    a warm-up, which for the graph is its capture; each step ended by the
     loss read) and one more step under the profiler; the graph's
     capture_s."""
     import statistics
@@ -2634,18 +2664,24 @@ def _train_step_before_after(cfg) -> dict:
     import torch
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.train.loop import make_loop_step
-    from repro_torch.train.state import make_train_state
+    from repro_torch.train.state import (lay_out_state, make_train_state,
+                                         state_shardings)
     from repro_torch.train.step import GraphedTrainStep, make_train_step
     t = TRAIN
     state = make_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
                              t["seq"], device=DEV)
+    if mesh is not None:
+        state = lay_out_state(state, state_shardings(cfg, t["seq"], mesh,
+                                                     rules))
     batch = _train_batch(cfg, TokenPipeline(
         cfg.vocab_size, t["batch"], t["seq"]).next_batch(), t["batch"])
     kw, out = _step_kw(t["seq"]), {}
     _train_backend(True)
     try:
-        for name, step in (("eager", make_train_step(cfg, **kw)),
-                           ("graphed", make_loop_step(cfg, DEV, **kw))):
+        for name, step in (("eager", make_train_step(cfg, mesh, rules,
+                                                     **kw)[0]),
+                           ("graphed", make_loop_step(cfg, mesh, rules, DEV,
+                                                      **kw)[0])):
             state, _ = step(state, batch)
             sync()
             times = []
@@ -2691,12 +2727,14 @@ def _graphed_vs_eager(cfg, b, seq, eager=("inplace",)) -> dict:
     kw = _step_kw(seq)
 
     def inplace():
-        step_ = make_train_step_(cfg, **kw)
+        step_, _ = make_train_step_(cfg, None, None, **kw)
         return lambda state, batch: (state, step_(state, batch))
 
-    makers = {"pure": lambda: make_train_step(cfg, **kw), "inplace": inplace}
+    makers = {"pure": lambda: make_train_step(cfg, None, None, **kw)[0],
+              "inplace": inplace}
     makers = {k: makers[k] for k in eager}
-    makers["graphed"] = lambda: make_loop_step(cfg, DEV, **kw)
+    makers["graphed"] = lambda: make_loop_step(cfg, None, None, DEV,
+                                               **kw)[0]
     pipe = TokenPipeline(cfg.vocab_size, b, seq, seed=TRAIN["seed"])
     batches = [_train_batch(cfg, pipe.next_batch(), b)
                for _ in range(GRAPH_CHECK_STEPS)]
@@ -2917,6 +2955,227 @@ def phase_train_resume(card_line):
          nondeterministic_ops=nondeterministic, crash_run_s=crash_s,
          resume_run_s=resume_s, resume_ckpt_stats=res.ckpt_stats,
          train_state=roundtrip, peak_bytes=peak_bytes())
+
+
+_TRAIN_SHARDED_CHILD = r"""
+import json, pickle, time
+import torch
+from repro_torch.checkpoint.serialization import _leaf_paths
+from repro_torch.distributed.sharding import is_dtensor, make_variant
+from repro_torch.launch.mesh import join_world, make_mesh
+from repro_torch.models.layers import Policy
+from repro_torch.models.params import tree_leaves
+from repro_torch.optim.adamw import AdamWCfg
+from repro_torch.train.state import lay_out_state, make_train_state
+from repro_torch.train.step import make_train_step
+args = json.loads(ARGS)
+# a fixed share of the host's cores a rank: the products' reductions then
+# split alike in every run, as the noise floor's comparison needs
+torch.set_num_threads(args["threads"])
+rank = join_world(timeout_s=args["world_timeout_s"])
+mesh = make_mesh(tuple(args["mesh"]), ("data", "model"), device="cpu")
+cfg = pickle.loads(bytes.fromhex(args["cfg"]))
+b, s = args["batch"], args["seq"]
+state = make_train_state(cfg, torch.Generator().manual_seed(0), s,
+                         device="cpu")
+toks = torch.randint(0, cfg.vocab_size, (b, s + 1),
+                     generator=torch.Generator().manual_seed(1))
+batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+kw = dict(policy=Policy(compute=torch.float32), max_seq=s, base_lr=1e-3,
+          warmup=1, adamw=AdamWCfg(eps=args["eps"]))
+plain, _ = make_train_step(cfg, None, None, **kw)
+want, wm = plain(state, batch)
+# the stack's own noise floor: the embedding moved by 1e-7 relative
+moved = dict(state, params=dict(state["params"]))
+moved["params"]["embed"] = {"embedding": state["params"]["embed"][
+    "embedding"] * (1 + 1e-7)}
+near, nm = plain(moved, batch)
+step, shardings = make_train_step(cfg, mesh, make_variant(args["rules"]),
+                                  **kw)
+laid = lay_out_state(state, shardings)
+t0 = time.perf_counter()
+got, gm = step(laid, batch)
+step_s = time.perf_counter() - t0
+def rel(a, ref):
+    a = a.full_tensor() if is_dtensor(a) else a
+    return float((a.double() - ref.double()).abs().max()
+                 / max(float(ref.double().abs().max()), 1e-30))
+diffs, noise = {}, {}
+for (k, a), (_, w), (_, n) in zip(_leaf_paths(got), _leaf_paths(want),
+                                  _leaf_paths(near)):
+    if w.is_floating_point():
+        kind = k.split("/")[1] if k.startswith("opt/") else k.split("/")[0]
+        diffs[kind] = max(diffs.get(kind, 0.0), rel(a, w))
+        noise[kind] = max(noise.get(kind, 0.0), rel(n, w))
+split = sum(t.to_local().numel() < t.numel() for t in tree_leaves(laid)
+            if is_dtensor(t))
+print(json.dumps({
+    "rank": rank, "coord": mesh.get_coordinate(), "step_s": step_s,
+    "loss": [float(gm["loss"]), float(wm["loss"]), float(nm["loss"])],
+    "grad_norm": [float(gm["grad_norm"]), float(wm["grad_norm"]),
+                  float(nm["grad_norm"])],
+    "diffs": diffs, "noise": noise, "split_leaves": split}))
+"""
+
+
+def _train_sharded_world() -> dict:
+    """One sharded step of ARCH's widths at a depth cut in a CPU world
+    against the one-device step, on every rank (_TRAIN_SHARDED_CHILD)."""
+    import pickle
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import run_world
+    w = TRAIN_SHARDED["world"]
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=w["layers"])
+    args = {k: w[k] for k in ("mesh", "rules", "batch", "seq", "eps",
+                              "world_timeout_s")}
+    args["cfg"] = pickle.dumps(cfg).hex()
+    args["threads"] = max(1, (os.cpu_count() or 1) // w["ranks"])
+    t0 = time.perf_counter()
+    outs = run_world(w["ranks"], f"ARGS = {json.dumps(args)!r}\n"
+                     + _TRAIN_SHARDED_CHILD, timeout_s=w["world_timeout_s"],
+                     env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                     cwd=ROOT)
+    per_rank = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    tol = w["tol"]
+
+    def held(r):
+        for key in ("loss", "grad_norm"):
+            got, want, near = r[key]
+            if abs(got - want) > max(tol, 2 * abs(near - want) / abs(want)) \
+                    * abs(want):
+                return False
+        # v is the squared gradient: twice the others' tolerance
+        return all(d <= (2 if k == "v" else 1) * max(tol, 2 * r["noise"][k])
+                   for k, d in r["diffs"].items()) and r["split_leaves"] > 0
+    return {"ranks": w["ranks"], "mesh": dict(zip(("data", "model"),
+                                                  w["mesh"])),
+            "rules": w["rules"], "layers": w["layers"], "batch": w["batch"],
+            "seq": w["seq"], "dtype": "float32", "adamw_eps": w["eps"],
+            "tol": tol, "world_s": time.perf_counter() - t0,
+            "per_rank": per_rank, "ok": all(map(held, per_rank))}
+
+
+def phase_train_sharded(card_line):
+    """The training path on a DeviceMesh: full-width smollm-135m through
+    ``train.loop.train(cfg, mesh, rules)`` on the card's one-rank mesh
+    under each of TRAIN_SHARDED["variants"] (bf16, flash, remat, TRAIN's
+    shape and steps, each step the replay of the sharded step's graph)
+    beside the plain loop from the same seed, under deterministic
+    algorithms: losses and the final TrainState bit-equal, 2 × n_layers
+    flash launches a step through ``local_map``.  A sharded run crashed
+    after step fail_at resumes from its checkpoint on one device and on
+    the mesh, each ending bit-equal to the uninterrupted sharded run.
+    Then the eager and graphed sharded step (``_train_step_before_after``;
+    the plain step's are the train phase's), and one step of a CPU world
+    (``_train_sharded_world``).  Returns the launch counts of the first
+    variant's run, the path's."""
+    import statistics
+    import warnings
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import make_variant
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    t0_phase = time.perf_counter()
+    t, ts = TRAIN, TRAIN_SHARDED
+    cfg = get_arch(ARCH)
+    mesh = make_local_mesh(device=DEV)
+    first = ts["variants"][0]
+    runs, counts, plain, uninterrupted = {}, None, None, None
+    states_equal, resumed = {}, {}
+    _train_backend(True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory() as crash:
+            warnings.simplefilter("always")
+            for name in ("plain",) + ts["variants"]:
+                on = (None, None) if name == "plain" else (
+                    mesh, make_variant(name))
+                free_and_reset_peak()
+                ops.reset_launch_counts()       # a run starts here
+                res = _train(cfg, *on)
+                launches = _launches()          # ... and ends here
+                if name == first:
+                    counts = launches           # the path's run
+                runs[name] = {
+                    "losses": res.losses, "step_s": statistics.median(
+                        res.step_s[1:]), "step_s_all": res.step_s,
+                    "captures": res.captures, "capture_s": res.capture_s,
+                    "launches": launches,
+                    "flash_launches_per_step":
+                        launches["flash_attention_fwd"] / res.steps_run,
+                    "peak_bytes": peak_bytes(),
+                    "reserved_bytes": reserved_bytes()}
+                if name == "plain":
+                    plain = res.state
+                else:
+                    states_equal[name] = _leaves_equal(_local(res.state),
+                                                       plain)
+                if name == first:
+                    uninterrupted = _local(res.state)
+                del res
+                free()
+            del plain
+            # a sharded run crashed after fail_at, resumed from its
+            # checkpoint on one device and on the mesh (neither saves)
+            rules = make_variant(first)
+            try:
+                _train(cfg, mesh, rules, ckpt_root=crash,
+                       ckpt_every=ts["fail_at"], fail_at_step=ts["fail_at"])
+                crashed = False
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+                crashed = True
+            for name, on in (("one_device", (None, None)),
+                             ("mesh", (mesh, rules))):
+                free()
+                res = _train(cfg, *on, ckpt_root=crash,
+                             ckpt_every=t["steps"] + 1)
+                resumed[name] = {
+                    "resumed_from": res.resumed_from,
+                    "steps_run": res.steps_run, "losses": res.losses,
+                    "captures": res.captures,
+                    "losses_equal": res.losses == runs[first]["losses"][
+                        ts["fail_at"]:],
+                    "state_equal": _leaves_equal(_local(res.state),
+                                                 uninterrupted)}
+                del res
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _train_backend(False)
+    del uninterrupted
+    free()
+    nondeterministic = sorted({str(w.message).split(".")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+    losses_equal = {name: runs[name]["losses"] == runs["plain"]["losses"]
+                    for name in ts["variants"]}
+    # the plain step's, in the same call: the train phase's line
+    before_after = _train_step_before_after(cfg, mesh, make_variant(first))
+    world = _train_sharded_world()
+    want = 2 * cfg.n_layers               # forward + remat recompute
+    captures = 1 if DEV == "cuda" else 0
+    ok = (all(states_equal.values()) and all(losses_equal.values())
+          and all(r["flash_launches_per_step"] == want
+                  and r["captures"] == captures for r in runs.values())
+          and crashed and all(
+              r["losses_equal"] and r["state_equal"]
+              and r["resumed_from"] == ts["fail_at"]
+              and r["steps_run"] == t["steps"] - ts["fail_at"]
+              and r["captures"] == captures for r in resumed.values())
+          and world["ok"])
+    emit("train-sharded", ok, card_line, arch=ARCH, dtype="bfloat16",
+         remat=True, batch=t["batch"], seq=t["seq"], steps=t["steps"],
+         mesh={"data": 1, "model": 1}, variants=list(ts["variants"]),
+         deterministic=True, runs=runs, losses_equal=losses_equal,
+         states_equal=states_equal, expected_flash_per_step=want,
+         fail_at_step=ts["fail_at"], resumed=resumed,
+         step_before_after=before_after, nondeterministic_ops=nondeterministic,
+         world=world, phase_s=time.perf_counter() - t0_phase)
+    return counts
 
 
 def phase_train_families(card_line):
@@ -3243,8 +3502,9 @@ def phase_checkpoint_remote(card_line):
     cfg = get_arch(ARCH)
     t = TRAIN
     free_and_reset_peak()
-    step_fn = make_train_step(cfg, base_lr=t["lr"], warmup=t["warmup"],
-                              total_steps=t["steps"], max_seq=t["seq"])
+    step_fn, _ = make_train_step(cfg, None, None, base_lr=t["lr"],
+                                 warmup=t["warmup"], total_steps=t["steps"],
+                                 max_seq=t["seq"])
     pipe = TokenPipeline(cfg.vocab_size, t["batch"], t["seq"])
     batches = [{k: torch.as_tensor(v, device=DEV)
                 for k, v in pipe.next_batch().items()}
@@ -3603,6 +3863,7 @@ def main() -> int:
         counts["serve-whisper"] = run("serve-whisper", phase_serve_whisper)
         counts["train"] = run("train", phase_train)
         run("train-resume", phase_train_resume)
+        counts["train-sharded"] = run("train-sharded", phase_train_sharded)
         counts["train-families"] = run("train-families",
                                        phase_train_families)
         counts["checkpoint-remote"] = run("checkpoint-remote",

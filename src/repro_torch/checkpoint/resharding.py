@@ -20,7 +20,7 @@ from repro_torch.checkpoint.serialization import (_leaf_paths, _unflatten,
                                                   load_manifest, to_tensor)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.sharding import (Layout, lay_out,
-                                              param_shardings)
+                                              param_shardings, replicated)
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.params import is_pm
 
@@ -90,13 +90,12 @@ def derive_shardings(template, mesh, rules=None):
     ``sharding.param_shardings``, so elastic restores can never drift from
     training layouts); other leaves replicate (the safe layout on a world
     whose shape the checkpoint never saw)."""
-    from torch.distributed.tensor import Replicate
-    replicated = Layout(mesh, (Replicate(),) * mesh.ndim, ())
+    whole = replicated(mesh)
 
     def one(_, leaf):
         if rules is not None and is_pm(leaf):
             return param_shardings(leaf, mesh, rules)
-        return replicated
+        return whole
     return _walk(template, one)
 
 

@@ -28,6 +28,7 @@ needs it.
 """
 from __future__ import annotations
 
+import functools
 import sys
 import threading
 from contextlib import contextmanager
@@ -188,6 +189,12 @@ def is_dtensor(x) -> bool:
     return mod is not None and isinstance(x, mod.DTensor)
 
 
+def local(t):
+    """A DTensor's own shard (a view: writing it writes the DTensor); a
+    plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 @dataclass(frozen=True)
 class Layout:
     """Where one leaf lives: its mesh, the DTensor placements, and the spec
@@ -227,6 +234,37 @@ def lay_out_zeros(shape, dtype, layout: Layout):
                         device=mesh_device(mesh))
     return DTensor.from_local(local, mesh, layout.placements,
                               run_check=False)
+
+
+def replicated(mesh) -> Layout:
+    """The layout of a leaf whole on every rank (the reference's
+    ``NamedSharding(mesh, P())``)."""
+    from torch.distributed.tensor import Replicate
+    return Layout(mesh, (Replicate(),) * len(mesh_shape(mesh)), ())
+
+
+def copy_into(buf, src) -> None:
+    """``buf.copy_(src)`` that keeps ``buf``'s layout: a DTensor ``buf``
+    takes a DTensor of its placements shard for shard, or a whole plain
+    tensor (every rank holds all of it) window for window."""
+    if not is_dtensor(buf) or is_dtensor(src):
+        buf.copy_(src)
+        return
+    mesh = buf.device_mesh
+    win = window(buf.placements, tuple(buf.shape), tuple(mesh.shape),
+                 mesh.get_coordinate())
+    buf.to_local().copy_(src[tuple(slice(a, b) for a, b in win)])
+
+
+def like_layout(g, like):
+    """``g`` (a gradient) in the placements of ``like`` (its param): a
+    partial sum over the batch axes is all-reduced where the param is
+    replicated and reduce-scattered where it is split (FSDP), so each rank
+    ends with the gradient of its own window.  Plain tensors pass as they
+    are."""
+    if not is_dtensor(g) or tuple(g.placements) == tuple(like.placements):
+        return g
+    return g.redistribute(like.device_mesh, like.placements)
 
 
 def layout_for(logical, shape, mesh, rules: ShardingRules,
@@ -271,6 +309,19 @@ def sharding_ctx(mesh, rules: ShardingRules):
         _CTX.mesh, _CTX.rules = prev
 
 
+def in_this_ctx(fn):
+    """``fn``, run under the sharding context current now wherever it is
+    called: a remat recompute runs in the backward, which on CUDA is
+    autograd's device thread, and the context is this thread's."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with sharding_ctx(mesh, rules):
+            return fn(*args, **kwargs)
+    return run
+
+
 def shard_act(x, logical: Tuple[Optional[str], ...]):
     """Lay a DTensor out by logical axes (the reference's
     ``with_sharding_constraint``); the identity on a plain tensor and
@@ -313,7 +364,11 @@ def local_map(fn, args, in_axes, out_like=()):
     tensor argument is first laid out by its logical axes in ``in_axes``
     (``shard_act``'s resolution) or by an entry of placements, and handed
     to ``fn`` as its local tensor (a plain tensor enters as ``Replicate``,
-    and ``Replicate`` -> ``Shard`` is a local slice, no collective).  The
+    and ``Replicate`` -> ``Shard`` is a local slice, no collective).
+    Under autograd the pair carries gradients back: an output's gradient
+    is laid out as that output (``from_local``'s backward), and each
+    local argument's gradient returns in the placements it was laid out
+    by, then through the layout's own backward to the argument's.  The
     entry ``"local"`` hands over a DTensor's own shard as it is laid out,
     so ``fn`` may write into it in place.  Output ``i`` of ``fn`` becomes
     a DTensor with the
@@ -337,7 +392,8 @@ def local_map(fn, args, in_axes, out_like=()):
             a = a.redistribute(mesh, act_placements(a, axes) if logical
                                else tuple(axes))
         laid.append(a)
-        local.append(a.to_local())
+        # the gradient of the local tensor comes back in these placements
+        local.append(a.to_local(grad_placements=a.placements))
     out = fn(*local)
     if not out_like:
         return out
@@ -349,11 +405,31 @@ def local_map(fn, args, in_axes, out_like=()):
     return wrapped[0] if single else wrapped
 
 
+def microbatches(x, a: int):
+    """``x`` (B, ...) as ``a`` microbatches, (a, B/a, ...), microbatch i
+    at index i: the reference's reshape, laid out as it constrains it
+    (``repro/train/step.py:82-90``), (None, "batch", ...): the microbatch
+    dim whole on every rank, each microbatch split over the batch axes as
+    a whole batch is.  On a mesh ``x`` is a DTensor split over the batch
+    (its rows are gathered first: a rank's microbatch rows are not its
+    batch rows) or a plain tensor whole on every rank."""
+    shape = (a, x.shape[0] // a) + tuple(x.shape[1:])
+    mesh = ctx_mesh()
+    if mesh is None:
+        return x.reshape(shape)
+    from torch.distributed.tensor import Replicate
+    whole = replicate(x).redistribute(mesh, (Replicate(),) * mesh.ndim)
+    return shard_act(whole.reshape(shape),
+                     (None, "batch") + (None,) * (x.ndim - 1))
+
+
 def gather_fsdp(tree):
     """ZeRO-3's gather: the DTensor leaves of the params one layer is about
     to read, with their FSDP split (over the rules' ``fsdp_axes``)
     replicated and their tensor-parallel split kept.  The gathered copy
     lives while the layer runs; the stored leaves stay at their windows.
+    Under autograd the gather's backward reduce-scatters each leaf's
+    gradient (a partial sum over the batch axes) back to its window.
     The tree as it is outside a mesh context or without FSDP."""
     mesh = ctx_mesh()
     if mesh is None or not _CTX.rules.fsdp_axes:

@@ -10,6 +10,7 @@ on one host by ``run_world``, whose ranks call ``join_world``."""
 from __future__ import annotations
 
 import datetime
+import json
 import math
 import os
 import subprocess
@@ -28,6 +29,13 @@ from repro_torch.device import resolve_device
 def world_size() -> int:
     """Ranks in the current process group (1 when there is none)."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def say(row: dict) -> None:
+    """Print ``row`` as one JSON line, from rank 0 only in a world of
+    several (the CLIs' output)."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(row))
 
 
 def mesh_device(mesh) -> torch.device:

@@ -49,7 +49,6 @@ with the round's generated tokens, whole on every rank:
 from __future__ import annotations
 
 import argparse
-import json
 import os
 
 import numpy as np
@@ -61,7 +60,8 @@ from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import make_variant
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import join_world, make_local_mesh, world_size
+from repro_torch.launch.mesh import (join_world, make_local_mesh, say,
+                                     world_size)
 from repro_torch.models.attention import set_attention_backend
 from repro_torch.models.layers import DEFAULT_POLICY
 from repro_torch.models.params import init_params
@@ -82,12 +82,6 @@ def request_extras(cfg, batch: int) -> dict:
         extras["vision_embeds"] = np.ones(
             (batch, cfg.n_vision_tokens, cfg.d_model), np.float32) * .1
     return extras
-
-
-def _say(row: dict) -> None:
-    """One JSON line, from rank 0 of a world of several."""
-    if not dist.is_initialized() or dist.get_rank() == 0:
-        print(json.dumps(row))
 
 
 def main(argv=None) -> list:
@@ -151,11 +145,11 @@ def run(argv=None):
                "flash_launches": ops.FLASH_LAUNCHES,
                "rglru_launches": ops.RGLRU_LAUNCHES,
                "tokens": res.tokens.tolist()}
-        _say(row)
+        say(row)
         rows.append(row)
         if args.snapshot_dir:
             eng.snapshot_service(CheckpointManager(args.snapshot_dir), step=r)
-            _say({"snapshot": args.snapshot_dir, "step": r})
+            say({"snapshot": args.snapshot_dir, "step": r})
     return rows, eng
 
 

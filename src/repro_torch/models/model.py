@@ -29,8 +29,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import (gather_fsdp, replicate,
-                                              shard_act)
+from repro_torch.distributed.sharding import (gather_fsdp, in_this_ctx,
+                                              replicate, shard_act)
 from repro_torch.models import attention as att
 from repro_torch.models import rglru as rg
 from repro_torch.models import xlstm as xl
@@ -266,7 +266,11 @@ def _positions(b: int, s: int, device):
 
 
 def _embed_in(cfg, params, tokens, extras, policy):
-    x = embed_tokens(cfg, gather_fsdp(params["embed"]), tokens, policy)
+    # the vocab-parallel lookup's partial sums reduced before anything is
+    # spliced in: DTensor cannot lay a replicated tensor out as the
+    # lookup's masked partial sum under autograd
+    x = shard_act(embed_tokens(cfg, gather_fsdp(params["embed"]), tokens,
+                               policy), ("batch", "seq", "embed"))
     if cfg.family == "vlm" and extras and "vision_embeds" in extras:
         v = shard_act(replicate(policy.c(extras["vision_embeds"])),
                       ("batch", "seq", "embed"))
@@ -286,7 +290,8 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
     kernel included, so a training step launches it twice a layer.  It
     stashes no RNG state (``preserve_rng_state=False``): no forward of the
     port draws a random number, and a CUDA graph's capture of the step
-    need not read the generator's state."""
+    need not read the generator's state.  The recompute runs under the
+    forward's sharding context (``sharding.in_this_ctx``)."""
     prefix, unit, n_units, tail = stack_plan(cfg)
     tokens = _tokens_in(batch["tokens"])
     b, s = tokens.shape
@@ -308,7 +313,8 @@ def lm_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
     for unit_p in _unstack(params["units"], n_units):
         x = shard_act(x, ("batch", "seq_saves", "embed"))
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(unit_body, x, unit_p, use_reentrant=False,
+            x, a = checkpoint(in_this_ctx(unit_body), x, unit_p,
+                              use_reentrant=False,
                               preserve_rng_state=False)
         else:
             x, a = unit_body(x, unit_p)

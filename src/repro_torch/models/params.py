@@ -71,6 +71,15 @@ def stack_defs(defs, n: int):
         defs)
 
 
+def abstract_params(defs, dtype_override=None):
+    """Tensors on the ``meta`` device, one per ``Pm``, of its shape and
+    dtype (or ``dtype_override``): the dry-run's stand-ins, nothing
+    allocated (the reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map_pm(
+        lambda p: torch.empty(p.shape, dtype=dtype_override or p.dtype,
+                              device="meta"), defs)
+
+
 def init_params(defs, generator: torch.Generator, device="cuda",
                 compute=None):
     """Real tensors on ``device``; ``generator`` must live on that device.

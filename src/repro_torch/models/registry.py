@@ -1,13 +1,16 @@
 """Family dispatch (torch twin of ``repro.models.registry``): one API over
 every architecture, the LM families and the audio encoder-decoder
-(whisper).  ``batch_specs`` and ``batch_logical_axes`` wait for the
-dry-run (ROADMAP.md, Queue 1), their only reader."""
+(whisper).  ``batch_specs`` gives a step's data inputs as ``meta``
+tensors (the reference's ``ShapeDtypeStruct`` stand-ins) and
+``batch_logical_axes`` the logical axes that lay them out on a mesh."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable, Dict
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.models import model as lm
 from repro_torch.models import whisper as wh
 from repro_torch.models.params import param_count
@@ -47,3 +50,42 @@ def active_param_ratio(cfg: ArchConfig) -> float:
     n_moe_layers = cfg.n_layers - e.first_k_dense
     total = count_params(cfg)
     return (total - n_moe_layers * (total_moe - active_moe)) / total
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, Any]:
+    """``meta`` tensors standing in for the *data* inputs of a step.
+
+    train:   tokens/targets (B,S) [+ frames | vision_embeds]
+    prefill: tokens (B,S) [+ frames | vision_embeds]
+    decode:  token (B,1), pos (B,)   (cache specs come from cache_defs)
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        out = {"tokens": spec((b, s)), "targets": spec((b, s))}
+    elif shape.kind == "prefill":
+        out = {"tokens": spec((b, s))}
+    else:
+        return {"token": spec((b, 1)), "pos": spec((b,))}
+    if cfg.family == "audio":
+        out["frames"] = spec((b, cfg.encoder.n_frames, cfg.d_model),
+                             torch.bfloat16)
+    if cfg.family == "vlm":
+        out["vision_embeds"] = spec((b, cfg.n_vision_tokens, cfg.d_model),
+                                    torch.bfloat16)
+    return out
+
+
+def batch_logical_axes(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, tuple]:
+    """Logical sharding axes for each batch input."""
+    if shape.kind == "decode":
+        return {"token": ("batch", None), "pos": ("batch",)}
+    ax = {"tokens": ("batch", "seq"), "targets": ("batch", "seq")}
+    if cfg.family == "audio":
+        ax["frames"] = ("batch", "frames", "embed")
+    if cfg.family == "vlm":
+        ax["vision_embeds"] = ("batch", None, "embed")
+    return ax

@@ -24,8 +24,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import (gather_fsdp, replicate,
-                                              shard_act)
+from repro_torch.distributed.sharding import (gather_fsdp, in_this_ctx,
+                                              replicate, shard_act)
 from repro_torch.models import attention as att
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_mlp,
                                        apply_norm, embed_defs, embed_tokens,
@@ -112,8 +112,9 @@ def whisper_forward(cfg: ArchConfig, params, batch, policy=DEFAULT_POLICY,
     x = _dec_in(cfg, params, tokens, policy)
     for p in _unstack(params["dec_blocks"], cfg.n_layers):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_dec_block, cfg, p, x, positions, mem, policy,
-                           use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(in_this_ctx(_dec_block), cfg, p, x, positions,
+                           mem, policy, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _dec_block(cfg, p, x, positions, mem, policy)
     logits = shard_act(_logits(cfg, params, x, policy),

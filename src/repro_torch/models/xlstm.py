@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import replicate, shard_act
+from repro_torch.distributed.sharding import (is_dtensor, local_map,
+                                              replicate, shard_act)
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_norm,
                                        norm_defs, residual)
 
@@ -72,6 +73,16 @@ def _causal_conv(u, w, state=None):
     return out, up[:, -(cw - 1):]                    # (B,S,F), new state
 
 
+def _logsigmoid(x):
+    """``F.logsigmoid``; on a DTensor elementwise on each rank's shard
+    (``local_map``): DTensor has no sharding rule for its backward."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import Replicate
+    places = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return local_map(F.logsigmoid, (x,), (places,), out_like=(0,))
+
+
 def _heads(x, h):
     b, s, di = x.shape
     return x.reshape(b, s, h, di // h)
@@ -80,7 +91,7 @@ def _heads(x, h):
 def _mlstm_gates(cfg, p, xc, policy):
     g = (xc @ policy.c(p["wgate"])).float()                  # (B,S,2H)
     h = cfg.n_heads
-    return g[..., :h], F.logsigmoid(g[..., h:])              # logi, logf
+    return g[..., :h], _logsigmoid(g[..., h:])              # logi, logf
 
 
 def _mlstm_in(cfg, p, x, conv_state, policy):
@@ -258,7 +269,7 @@ def _slstm_cell(gx, state, rr):
     rec = torch.matmul(hs.transpose(0, 1), rr)              # (H,B,4*hd)
     g = gx + rec.view(h, b, 4, hd).permute(1, 2, 0, 3)      # (B,4,H,hd)
     gi, gf, gz, go = g.unbind(1)
-    logf = F.logsigmoid(gf)
+    logf = _logsigmoid(gf)
     m_new = torch.maximum(logf + ms, gi)
     ip = torch.exp(gi - m_new)
     fp = torch.exp(logf + ms - m_new)

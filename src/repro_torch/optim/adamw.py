@@ -16,6 +16,15 @@ the same expressions through the same ``upd`` and writes the results into
 the params, moments and count it was given: the in-place step that a
 captured train step replays (the counterpart of the reference's donated
 state).  No fused or in-place arithmetic, which would round otherwise.
+
+On a mesh the params, gradients and moments are DTensors of one layout
+(the params'; the step brings each gradient to it first).  The update is
+elementwise, so it runs on each rank's own shards (``to_local``) and
+gives each leaf back in its layout: the same expressions on the same
+values, and nothing gathered.  The clip scale needs the whole tree's
+norm: ``global_norm`` sums each leaf's squares over the ranks that split
+it, so the norm, the scale and every other scalar are one value, the same
+on every rank, plain 0-d tensors.
 """
 from __future__ import annotations
 
@@ -24,7 +33,9 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import is_dtensor, local
 from repro_torch.models.params import (tree_leaves, tree_map,
                                       tree_unflatten)
 
@@ -49,18 +60,66 @@ def const_f32(x, like):
     return _const(float(x), like.device)
 
 
+def _like(x, t):
+    """The local tensor ``x`` as a DTensor laid out as ``t``; plain as it
+    is when ``t`` is plain."""
+    if not is_dtensor(t):
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
 def init_opt_state(params):
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    """Zero fp32 moments in the params' layouts (a DTensor param's
+    moments are DTensors of its placements, each rank allocating its
+    window), and the count."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     leaf = tree_leaves(params)[0]
+    count = torch.zeros((), dtype=torch.int32, device=local(leaf).device)
+    if is_dtensor(leaf):
+        from torch.distributed.tensor import DTensor, Replicate
+        count = DTensor.from_local(count, leaf.device_mesh,
+                                   [Replicate()] * leaf.device_mesh.ndim,
+                                   run_check=False)
     return {"m": tree_map(zeros, params),
             "v": tree_map(zeros, params),
-            "count": torch.zeros((), dtype=torch.int32, device=leaf.device)}
+            "count": count}
+
+
+def _split_dims(t) -> tuple:
+    """The mesh dims of size > 1 that split the DTensor ``t`` (none for a
+    plain tensor).  A partial sum has no norm yet: it is refused."""
+    if not is_dtensor(t):
+        return ()
+    if any(p.is_partial() for p in t.placements):
+        raise ValueError("global_norm of a partial sum: reduce the "
+                         "gradient to its param's layout first")
+    mesh = t.device_mesh
+    return tuple(i for i, p in enumerate(t.placements)
+                 if p.is_shard() and mesh.size(i) > 1)
 
 
 def global_norm(tree):
-    leaves = [torch.sum(torch.square(t.float())) for t in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """sqrt of the sum of every leaf's squares, summed in leaf order.  A
+    DTensor leaf's sum over its own shard is summed over the ranks that
+    split it, one all-reduce per set of mesh dims: the norm is the same
+    value on every rank (a plain 0-d tensor)."""
+    leaves = tree_leaves(tree)
+    sums = [torch.sum(torch.square(local(t).float())) for t in leaves]
+    groups: dict = {}
+    for i, t in enumerate(leaves):
+        dims = _split_dims(t)
+        if dims:
+            groups.setdefault(dims, ([], t.device_mesh))[0].append(i)
+    for dims, (idx, mesh) in groups.items():
+        part = torch.stack([sums[i] for i in idx])
+        for d in dims:
+            dist.all_reduce(part, group=mesh.get_group(d))
+        for j, i in enumerate(idx):
+            sums[i] = part[j]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 def _update_fn(grads, opt_state, cfg: AdamWCfg, lr):
@@ -69,7 +128,7 @@ def _update_fn(grads, opt_state, cfg: AdamWCfg, lr):
     gnorm = global_norm(grads)
     scale = torch.clamp_max(
         const_f32(cfg.clip_norm, gnorm) / (gnorm + 1e-12), 1.0)
-    count = opt_state["count"] + 1
+    count = local(opt_state["count"]) + 1
     b1c = 1.0 - torch.pow(const_f32(cfg.b1, gnorm), count.float())
     b2c = 1.0 - torch.pow(const_f32(cfg.b2, gnorm), count.float())
 
@@ -87,8 +146,15 @@ def _update_fn(grads, opt_state, cfg: AdamWCfg, lr):
 
 
 def _flat(params, grads, opt_state):
-    return zip(tree_leaves(params), tree_leaves(grads),
-               tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]))
+    """(param, grad, m, v) of each leaf, each rank's own shards."""
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(opt_state["m"]),
+                          tree_leaves(opt_state["v"])):
+        if is_dtensor(p) and not (g.placements == m.placements
+                                  == v.placements == p.placements):
+            raise ValueError("AdamW's gradient and moments must be laid "
+                             "out as their param")
+        yield local(p), local(g), local(m), local(v)
 
 
 def adamw_update(params, grads, opt_state, lr, cfg: AdamWCfg = AdamWCfg()):
@@ -98,9 +164,14 @@ def adamw_update(params, grads, opt_state, lr, cfg: AdamWCfg = AdamWCfg()):
         upd, count, metrics = _update_fn(grads, opt_state, cfg, lr)
         out = [upd(p, g, m, v) for p, g, m, v in _flat(params, grads,
                                                        opt_state)]
-    new_p = tree_unflatten(params, [o[0] for o in out])
-    new_m = tree_unflatten(params, [o[1] for o in out])
-    new_v = tree_unflatten(params, [o[2] for o in out])
+    leaves = tree_leaves(params)
+    new_p = tree_unflatten(params, [_like(o[0], t)
+                                    for o, t in zip(out, leaves)])
+    new_m = tree_unflatten(params, [_like(o[1], t)
+                                    for o, t in zip(out, leaves)])
+    new_v = tree_unflatten(params, [_like(o[2], t)
+                                    for o, t in zip(out, leaves)])
+    count = _like(count, opt_state["count"])
     return new_p, {"m": new_m, "v": new_v, "count": count}, metrics
 
 
@@ -117,7 +188,7 @@ def adamw_update_(params, grads, opt_state, lr, cfg: AdamWCfg = AdamWCfg()):
             m.copy_(m2)
             v.copy_(v2)
             del p2, m2, v2              # before the next leaf's update
-        opt_state["count"].copy_(count)
+        local(opt_state["count"]).copy_(count)
     return metrics
 
 

@@ -33,10 +33,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.distributed.sharding import (ShardingRules, is_dtensor,
-                                              lay_out, lay_out_zeros,
-                                              layout_for, sharding_ctx,
-                                              window)
+from repro_torch.distributed.sharding import (ShardingRules, copy_into,
+                                              is_dtensor, lay_out,
+                                              lay_out_zeros, layout_for,
+                                              sharding_ctx, window)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.attention import get_attention_backend
@@ -235,7 +235,7 @@ class ServeEngine:
                                  ("batch", "seq")),
                 {k: torch.empty_like(x) for k, x in extras.items()})
         prompt = self._prompts[key]
-        _fill(prompt.tokens, tokens)
+        copy_into(prompt.tokens, tokens)
         for k, x in extras.items():
             prompt.extras[k].copy_(x)
         return prompt
@@ -337,18 +337,6 @@ class ServeEngine:
                    if self.generated else np.zeros((0, 0), np.int32)}
         mgr.save(step, payload, meta={"kind": "serve", "arch": self.cfg.name})
         mgr.wait()
-
-
-def _fill(buf, whole) -> None:
-    """Copy the whole tensor ``whole`` into the buffer ``buf``: on a mesh
-    each rank copies its window into its shard."""
-    if not is_dtensor(buf):
-        buf.copy_(whole)
-        return
-    mesh = buf.device_mesh
-    win = window(buf.placements, tuple(buf.shape), tuple(mesh.shape),
-                 mesh.get_coordinate())
-    buf.to_local().copy_(whole[tuple(slice(a, b) for a, b in win)])
 
 
 def _greedy(logits) -> torch.Tensor:

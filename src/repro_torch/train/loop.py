@@ -19,6 +19,14 @@ tensors; on the CPU the pure step.  The batch crosses from the host
 outside the graph.  A save between two replays is sound because
 ``CheckpointManager.save`` copies the state to the host before it returns;
 a resumed run restores new tensors, and the step captures again over them.
+
+On a mesh (``train(cfg, mesh, rules, ...)``) the state is made, or
+restored from a checkpoint of any mesh and either package, straight into
+``state_shardings``' DTensors; every rank draws the same global batch
+from the seed and the batch is laid out by ``batch_logical_axes``; saves
+run across the ranks (rank 0 commits the manifest), whose meta names the
+rules and the mesh as the reference's does.  ``mesh=None`` trains plain
+tensors on ``device``.
 """
 from __future__ import annotations
 
@@ -31,16 +39,18 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (ShardingRules, lay_out,
+                                              layout_for, local, mesh_shape,
+                                              replicated)
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.layers import Policy
-from repro_torch.train.state import make_train_state, train_state_template
+from repro_torch.models.registry import batch_logical_axes
+from repro_torch.train.state import (lay_out_state, make_train_state,
+                                     train_state_template)
 from repro_torch.train.step import GraphedTrainStep, make_train_step
-
-#: the reference records its rules and mesh in the meta; the port runs the
-#: baseline layout on one device
-_LAYOUT = {"rules": "baseline", "mesh": {"data": 1, "model": 1}}
 
 
 @dataclass
@@ -57,23 +67,27 @@ class TrainResult:
     #: CPU); the first step of a run includes its capture
     captures: int = 0
     capture_s: float = 0.0
+    #: the TrainState after the last step (on a mesh, its DTensors)
+    state: Optional[dict] = None
 
 
 def _use_graphs(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
-def make_loop_step(cfg: ArchConfig, device, **step_kw):
-    """The step the loop runs on ``device``, ``(state, batch) -> (state,
-    metrics)``: a ``GraphedTrainStep`` on CUDA, else the pure
-    ``make_train_step``; ``step_kw`` are ``make_train_step``'s."""
-    dev = resolve_device(device)
+def make_loop_step(cfg: ArchConfig, mesh, rules, device, **step_kw):
+    """The step the loop runs, ``(state, batch) -> (state, metrics)``, and
+    the state's layouts: a ``GraphedTrainStep`` on CUDA, else the pure
+    ``make_train_step``; on ``mesh``'s device, or on ``device`` without a
+    mesh; ``step_kw`` are ``make_train_step``'s."""
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh)
     if _use_graphs(dev):
-        return GraphedTrainStep(cfg, device=dev, **step_kw)
-    return make_train_step(cfg, **step_kw)
+        step = GraphedTrainStep(cfg, mesh, rules, device=dev, **step_kw)
+        return step, step.state_shardings
+    return make_train_step(cfg, mesh, rules, **step_kw)
 
 
-def train(cfg: ArchConfig, *,
+def train(cfg: ArchConfig, mesh, rules: Optional[ShardingRules], *,
           n_steps: int,
           global_batch: int,
           seq_len: int,
@@ -89,16 +103,17 @@ def train(cfg: ArchConfig, *,
           log_every: int = 10,
           remat: bool = True,
           device="cuda") -> TrainResult:
-    """Run (or resume) training on ``device``.  ``fail_at_step`` injects a
-    crash for the fault-tolerance tests: the process raises AFTER that
-    step completes but BEFORE the next checkpoint — a rerun must recover
-    from the last one."""
+    """Run (or resume) training on ``mesh`` by ``rules``, or with
+    ``mesh=None`` on ``device``.  ``fail_at_step`` injects a crash for the
+    fault-tolerance tests: the process raises AFTER that step completes
+    but BEFORE the next checkpoint — a rerun must recover from the last
+    one."""
     t_start = time.time()
-    dev = resolve_device(device)
-    step_fn = make_loop_step(cfg, dev, accum_steps=accum_steps,
-                             base_lr=base_lr, warmup=warmup, policy=policy,
-                             max_seq=seq_len, total_steps=n_steps,
-                             remat=remat)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh)
+    step_fn, st_shard = make_loop_step(
+        cfg, mesh, rules, dev, accum_steps=accum_steps, base_lr=base_lr,
+        warmup=warmup, policy=policy, max_seq=seq_len, total_steps=n_steps,
+        remat=remat)
 
     result = TrainResult()
     mgr = None
@@ -108,19 +123,32 @@ def train(cfg: ArchConfig, *,
         mgr = CheckpointManager(ckpt_root, keep=keep)
         template = {"train": train_state_template(cfg, seq_len),
                     "data": {"seed": 0, "cursor": 0}}
-        restored, meta = mgr.restore(template, device=dev)
+        layouts = None
+        if mesh is not None:
+            rep = replicated(mesh)
+            layouts = {"train": st_shard,
+                       "data": {"seed": rep, "cursor": rep}}
+        restored, meta = mgr.restore(template, layouts, device=dev)
         if restored is not None:
             state = restored["train"]
+            data = {k: int(local(v)) for k, v in restored["data"].items()}
             pipe = TokenPipeline(cfg.vocab_size, global_batch, seq_len,
-                                 seed=int(restored["data"]["seed"]))
-            pipe.cursor = int(restored["data"]["cursor"])
+                                 seed=data["seed"])
+            pipe.cursor = data["cursor"]
             result.resumed_from = int(meta.get("step", -1))
     if state is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         state = make_train_state(cfg, gen, seq_len, device=dev)
+        if mesh is not None:
+            state = lay_out_state(state, st_shard)
         pipe = TokenPipeline(cfg.vocab_size, global_batch, seq_len, seed=seed)
+    layout_meta = {"rules": rules.name if rules is not None else "baseline",
+                   "mesh": (mesh_shape(mesh) if mesh is not None
+                            else {"data": 1, "model": 1})}
+    batch_axes = batch_logical_axes(cfg, ShapeCfg("loop", "train", seq_len,
+                                                  global_batch))
 
-    start_step = int(state["step"])
+    start_step = int(local(state["step"]))
     for step in range(start_step, n_steps):
         t0 = time.perf_counter()
         batch = {k: torch.as_tensor(v, device=dev)
@@ -132,6 +160,10 @@ def train(cfg: ArchConfig, *,
             batch["frames"] = torch.full(
                 (global_batch, cfg.encoder.n_frames, cfg.d_model), 0.1,
                 device=dev)
+        if mesh is not None:
+            batch = {k: lay_out(v, layout_for(batch_axes[k], v.shape, mesh,
+                                              rules, fsdp=False))
+                     for k, v in batch.items()}
         state, metrics = step_fn(state, batch)
         if step % log_every == 0 or step == n_steps - 1:
             result.losses.append(float(metrics["loss"]))
@@ -142,7 +174,8 @@ def train(cfg: ArchConfig, *,
                        "data": {"seed": np.int64(pipe.seed),
                                 "cursor": np.int64(pipe.cursor)}}
             mgr.save(step + 1, payload, meta={"step": step + 1,
-                                              "arch": cfg.name, **_LAYOUT})
+                                              "arch": cfg.name,
+                                              **layout_meta})
         if fail_at_step is not None and step + 1 >= fail_at_step:
             if mgr is not None:
                 mgr.wait()
@@ -153,5 +186,6 @@ def train(cfg: ArchConfig, *,
     if isinstance(step_fn, GraphedTrainStep):
         result.captures, result.capture_s = (step_fn.captures,
                                              step_fn.capture_s)
+    result.state = state
     result.wall_s = time.time() - t_start
     return result

@@ -922,3 +922,34 @@ def _exact_attention(q, k, v, causal, window):
         s = torch.where(ok, s, -1e30)
     return torch.einsum("bgqk,bkd->bgqd", torch.softmax(s, -1),
                         v.double()).reshape(bh, sq, hd)
+
+
+def test_chip_smoke_train_sharded_phase_on_cpu(smoke, capsys):
+    """The train-sharded phase at smoke widths on the CPU: the loop on this
+    process's 1-rank mesh under baseline and fsdp beside the plain loop
+    (the pure step: no graph on the CPU), losses and final TrainStates
+    bit-equal, 2 × 3 flash launches a step through ``local_map``; the
+    crash after step 5 resumed on one device and on the mesh, bit-equal
+    to the uninterrupted run; the eager and loop steps both ways; a
+    2-rank world's step against the one-device step."""
+    counts = smoke.phase_train_sharded("cpu rehearsal, 0 W")
+    assert counts == {"flash_attention_fwd": 10 * 6, "rglru_scan": 0,
+                      "quantize_int8": 0, "dequantize_int8": 0}
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "train-sharded"'))
+    assert line["ok"] and line["variants"] == ["baseline", "fsdp"]
+    assert set(line["runs"]) == {"plain", "baseline", "fsdp"}
+    for run in line["runs"].values():
+        assert run["flash_launches_per_step"] == 6 and run["captures"] == 0
+        assert run["losses"] == line["runs"]["plain"]["losses"]
+    assert line["states_equal"] == {"baseline": True, "fsdp": True}
+    for name in ("one_device", "mesh"):
+        r = line["resumed"][name]
+        assert (r["resumed_from"], r["steps_run"]) == (5, 5)
+        assert r["losses_equal"] and r["state_equal"]
+    ba = line["step_before_after"]
+    assert ba["eager"]["step_s"] > 0 and ba["graphed"]["step_s"] > 0
+    world = line["world"]
+    assert world["ok"] and world["mesh"] == {"data": 1, "model": 2}
+    assert [r["rank"] for r in world["per_rank"]] == [0, 1]
+    assert line["phase_s"] > 0

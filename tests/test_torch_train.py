@@ -303,10 +303,11 @@ def test_train_step_matches_reference(name, mode):
     if mode == "inplace":
         t_new = tree_map(torch.clone, tstate)
         leaves = tree_leaves(t_new)
-        tm = make_train_step_(tc, **t_kw)(t_new, t_batch)
+        tm = make_train_step_(tc, None, None, **t_kw)[0](t_new, t_batch)
         assert all(a is b for a, b in zip(tree_leaves(t_new), leaves))
     else:
-        t_new, tm = make_train_step(tc, **t_kw)(tstate, t_batch)
+        t_new, tm = make_train_step(tc, None, None, **t_kw)[0](tstate,
+                                                                t_batch)
     np.testing.assert_allclose(float(tm["loss"]), j_loss, rtol=GRAD_RTOL)
     # the step builds a new state and leaves its input as it was
     assert int(tstate["step"]) == 0
@@ -350,7 +351,8 @@ def test_train_step_runs_and_updates(name):
     kinds the port has: bf16 DEFAULT_POLICY, remat on."""
     cfg = t_reduce_for_smoke(T_ARCHS[name])
     B, S = 2, 32
-    step = make_train_step(cfg, max_seq=S, base_lr=1e-3, warmup=1)
+    step, _ = make_train_step(cfg, None, None, max_seq=S, base_lr=1e-3,
+                              warmup=1)
     state = make_train_state(cfg, torch.Generator().manual_seed(0), S,
                              device="cpu")
     p0 = tree_leaves(state["params"])[0].clone()
@@ -379,8 +381,8 @@ def test_remat_gives_the_same_grads():
 def test_training_loss_decreases():
     """Twin of tests/test_system.py:17."""
     cfg = t_reduce_for_smoke(T_ARCHS["smollm-135m"])
-    res = t_train(cfg, n_steps=25, global_batch=8, seq_len=32, log_every=1,
-                  base_lr=3e-3, warmup=3, seed=0, device="cpu")
+    res = t_train(cfg, None, None, n_steps=25, global_batch=8, seq_len=32,
+                  log_every=1, base_lr=3e-3, warmup=3, seed=0, device="cpu")
     first, last = res.losses[0], np.mean(res.losses[-3:])
     assert last < first - 0.1, (first, last)
     assert len(res.step_s) == res.steps_run == 25
@@ -392,8 +394,8 @@ def test_train_loop_runs_the_recurrent_and_audio_families(name):
     batch carries the stub frames, as the reference's batch_specs give
     it): finite losses, every step run."""
     cfg = t_reduce_for_smoke(T_ARCHS[name])
-    res = t_train(cfg, n_steps=3, global_batch=2, seq_len=32, log_every=1,
-                  base_lr=3e-3, warmup=1, seed=0, device="cpu")
+    res = t_train(cfg, None, None, n_steps=3, global_batch=2, seq_len=32,
+                  log_every=1, base_lr=3e-3, warmup=1, seed=0, device="cpu")
     assert res.steps_run == len(res.losses) == 3
     assert all(np.isfinite(res.losses))
 
@@ -404,10 +406,11 @@ def test_train_crash_resume_loss_continuity(tmp_path):
     cfg = t_reduce_for_smoke(T_ARCHS["smollm-135m"])
     kw = dict(n_steps=10, global_batch=4, seq_len=32, log_every=1, seed=5,
               device="cpu")
-    ref = t_train(cfg, ckpt_root=None, **kw)
+    ref = t_train(cfg, None, None, ckpt_root=None, **kw)
     with pytest.raises(RuntimeError):
-        t_train(cfg, ckpt_root=tmp_path, ckpt_every=4, fail_at_step=7, **kw)
-    res = t_train(cfg, ckpt_root=tmp_path, ckpt_every=4, **kw)
+        t_train(cfg, None, None, ckpt_root=tmp_path, ckpt_every=4,
+                fail_at_step=7, **kw)
+    res = t_train(cfg, None, None, ckpt_root=tmp_path, ckpt_every=4, **kw)
     assert res.resumed_from == 4          # last ckpt before the injected crash
     assert res.steps_run == 6
     assert abs(res.losses[-1] - ref.losses[-1]) < 1e-6
@@ -478,8 +481,8 @@ def test_jax_crash_resumes_in_the_port(tmp_path, jax_uninterrupted):
     with pytest.raises(RuntimeError):
         j_train(jc, make_local_mesh(), make_variant("baseline"), policy=J32,
                 ckpt_root=tmp_path, ckpt_every=4, fail_at_step=7, **_KW)
-    res = t_train(tc, ckpt_root=tmp_path, ckpt_every=4, policy=T32,
-                  device="cpu", **_KW)
+    res = t_train(tc, None, None, ckpt_root=tmp_path, ckpt_every=4,
+                  policy=T32, device="cpu", **_KW)
     assert res.resumed_from == 4 and res.steps_run == 6
     diff = abs(res.losses[-1] - jax_uninterrupted.losses[-1])
     print(f"jax -> port: last-loss difference {diff!r}")
@@ -502,8 +505,8 @@ def test_port_crash_resumes_in_jax(tmp_path, jax_uninterrupted):
                    "mesh": {"data": 1, "model": 1}})
     mgr.wait()
     with pytest.raises(RuntimeError):
-        t_train(tc, ckpt_root=tmp_path, ckpt_every=4, fail_at_step=7,
-                policy=T32, device="cpu", **_KW)
+        t_train(tc, None, None, ckpt_root=tmp_path, ckpt_every=4,
+                fail_at_step=7, policy=T32, device="cpu", **_KW)
     res = j_train(jc, make_local_mesh(), make_variant("baseline"), policy=J32,
                   ckpt_root=tmp_path, ckpt_every=4, **_KW)
     assert res.resumed_from == 4 and res.steps_run == 6

@@ -78,7 +78,8 @@ def test_inplace_step_equals_the_pure_step(name, mode):
     cfg = reduce_for_smoke(ARCHS[name])
     kw = dict(max_seq=S, base_lr=1e-3, warmup=1, **MODES[mode])
     master = mode == "master_fp32"
-    pure, inplace = make_train_step(cfg, **kw), make_train_step_(cfg, **kw)
+    pure, _ = make_train_step(cfg, None, None, **kw)
+    inplace, _ = make_train_step_(cfg, None, None, **kw)
     want = _state(cfg, master)
     got = tree_map(torch.clone, want)
     leaves = tree_leaves(got)
@@ -104,8 +105,8 @@ def test_warm_inplace_step_copies_nothing_from_the_host(name, monkeypatch):
     ``torch.as_tensor`` refusing: a copy from the host cannot be captured
     into a CUDA graph."""
     cfg = reduce_for_smoke(ARCHS[name])
-    step_ = make_train_step_(cfg, max_seq=S, base_lr=1e-3, warmup=1,
-                             accum_steps=2, master_fp32=True)
+    step_, _ = make_train_step_(cfg, None, None, max_seq=S, base_lr=1e-3,
+                                warmup=1, accum_steps=2, master_fp32=True)
     state = _state(cfg, master_fp32=True)
     step_(state, _batch(cfg, B, S, 1))
     batch = _batch(cfg, B, S, 2)
@@ -189,7 +190,7 @@ def _eager(monkeypatch, **kw):
     """The loop's eager path, with the fake graphs' patches lifted."""
     with monkeypatch.context() as m:
         m.setattr(loop, "_use_graphs", lambda dev: False)
-        return loop.train(_flash_cfg(), **_LOOP, **kw)
+        return loop.train(_flash_cfg(), None, None, **_LOOP, **kw)
 
 
 def test_graphed_loop_replays_one_capture(graphs, monkeypatch):
@@ -198,7 +199,7 @@ def test_graphed_loop_replays_one_capture(graphs, monkeypatch):
     and the remat recompute), counted through the replays: the first step
     is the eager warm-up, the capture counts nothing."""
     cfg, n = _flash_cfg(), 5
-    res = loop.train(cfg, n_steps=n, **_LOOP)
+    res = loop.train(cfg, None, None, n_steps=n, **_LOOP)
     launches = ops.FLASH_LAUNCHES
     ops.reset_launch_counts()
     eager = _eager(monkeypatch, n_steps=n)
@@ -215,8 +216,8 @@ def test_save_between_replays_holds_the_pre_replay_values(graphs,
     restores bit-equal to the eager loop's of the same step, though the
     replays after each save write into the tensors it saved."""
     cfg = _flash_cfg()
-    loop.train(cfg, n_steps=6, ckpt_root=tmp_path / "g", ckpt_every=2,
-               **_LOOP)
+    loop.train(cfg, None, None, n_steps=6, ckpt_root=tmp_path / "g",
+               ckpt_every=2, **_LOOP)
     _eager(monkeypatch, n_steps=6, ckpt_root=tmp_path / "e", ckpt_every=2)
     assert graphs[0].replays == 5
     template = {"train": train_state_template(cfg, _LOOP["seq_len"]),
@@ -236,11 +237,13 @@ def test_graphed_crash_resume_captures_again(graphs, tmp_path):
     resumed run captures again over the restored tensors and ends on the
     uninterrupted graphed run's loss exactly."""
     cfg = _flash_cfg()
-    ref = loop.train(cfg, n_steps=10, **_LOOP)
+    ref = loop.train(cfg, None, None, n_steps=10, **_LOOP)
     with pytest.raises(RuntimeError, match="injected failure"):
-        loop.train(cfg, n_steps=10, ckpt_root=tmp_path, ckpt_every=4,
+        loop.train(cfg, None, None, n_steps=10, ckpt_root=tmp_path,
+                   ckpt_every=4,
                    fail_at_step=7, **_LOOP)
-    res = loop.train(cfg, n_steps=10, ckpt_root=tmp_path, ckpt_every=4,
+    res = loop.train(cfg, None, None, n_steps=10, ckpt_root=tmp_path,
+                     ckpt_every=4,
                      **_LOOP)
     assert (res.resumed_from, res.steps_run, res.captures) == (4, 6, 1)
     assert [g.replays for g in graphs] == [9, 6, 5]
@@ -252,9 +255,10 @@ def test_graphed_step_captures_again_when_a_leaf_is_rebound(graphs):
     (or a new batch shape) drops it and captures again, and the step then
     continues from the state it is given."""
     cfg = reduce_for_smoke(ARCHS["smollm-135m"])
-    step = GraphedTrainStep(cfg, device="cpu", max_seq=S, base_lr=1e-3,
-                            warmup=1)
-    pure = make_train_step(cfg, max_seq=S, base_lr=1e-3, warmup=1)
+    step = GraphedTrainStep(cfg, None, None, device="cpu", max_seq=S,
+                            base_lr=1e-3, warmup=1)
+    pure, _ = make_train_step(cfg, None, None, max_seq=S, base_lr=1e-3,
+                              warmup=1)
     state = _state(cfg)
     want = tree_map(torch.clone, state)
     for i, b in enumerate((B, B, B, 2 * B)):
