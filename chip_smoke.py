@@ -187,6 +187,15 @@ one JSON line each; any failure exits non-zero:
                  steps against 3 eager in-place ones from one state under
                  deterministic algorithms, losses, launches and every
                  TrainState leaf equal
+  dryrun         one production cell of the dry-run, smollm-135m
+                 decode_32k on the (16, 16) pod mesh, through python -m
+                 repro_torch.launch.dryrun as rank 0 of a fake 256-rank
+                 world, once with the fake tensors on the card's device
+                 type and once on the CPU, both in child processes: both
+                 ok, flops, bytes and collectives equal, each trace_s and
+                 this torch's version; a child that traces a product split
+                 over the model axis must count one rank's local flops.
+                 No kernel runs
   checkpoint-remote
                  the full-width TrainState after 2 steps through the
                  manager in three legs: its own directory, one chunk
@@ -360,6 +369,21 @@ TRAIN_SHARDED = dict(variants=("baseline", "fsdp"), fail_at=5,
                      world=dict(ranks=2, mesh=(1, 2), rules="baseline",
                                 layers=2, batch=2, seq=128, eps=1e-3,
                                 tol=1e-5, world_timeout_s=300))
+
+
+# dryrun: one production cell traced as rank 0 of its fake world, in a
+# child process per device type (this process holds the meshes' 1-rank
+# world); the costs must not depend on the device the fake tensors claim
+DRYRUN = dict(arch="smollm-135m", shape="decode_32k", mesh="pod",
+              variant="auto", timeout_s=240)
+# x (64, 4096) whole times w (4096, 4096) split over a 16-wide model axis
+# in a fake (16, 16) world: each rank's product is 64 x 4096 x 256, its
+# modelled bytes this rank's fp32 x, w shard and output, its one
+# temporary the output (the global-shape ops of DTensor's sharding
+# propagation, billed, would show in all three)
+DRYRUN_PROBE_WANT = {"flops": 2 * 64 * 4096 * 256,
+                     "bytes": 4 * (64 * 4096 + 4096 * 256 + 64 * 256),
+                     "peak_temp_bytes": 4 * 64 * 256}
 
 
 class PhaseFailed(Exception):
@@ -3213,6 +3237,103 @@ def phase_train_families(card_line):
     return counts
 
 
+# ---------------------------------------------------------------- dryrun
+
+_DRYRUN_PROBE = r"""
+import json, sys
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch import cost_analysis as ca
+from repro_torch.launch.dryrun import start_fake_world
+from repro_torch.launch.mesh import make_mesh
+dev = sys.argv[1]
+start_fake_world(256)
+mesh = make_mesh((16, 16), ("data", "model"), device=dev)
+with FakeTensorMode():
+    x = DTensor.from_local(torch.empty(64, 4096, device=dev), mesh,
+                           [Replicate(), Replicate()], run_check=False)
+    w = DTensor.from_local(torch.empty(4096, 256, device=dev), mesh,
+                           [Replicate(), Shard(1)], run_check=False)
+    with ca.analyze() as an:
+        x @ w
+print(json.dumps({"flops": an.cost.flops, "bytes": an.cost.bytes,
+                  "peak_temp_bytes": an.peak_temp_bytes,
+                  "torch": torch.__version__}))
+"""
+
+
+def _dryrun_children(out: Path) -> dict:
+    """The dry-run cell through ``python -m repro_torch.launch.dryrun`` on
+    DEV and on the CPU, and the flop probe, as child processes started
+    together; each one's exit code, output and record."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    name = (f"{DRYRUN['arch']}__{DRYRUN['shape']}__{DRYRUN['mesh']}__"
+            f"{DRYRUN['variant']}.json")
+    cmds = {dev: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                  "--arch", DRYRUN["arch"], "--shape", DRYRUN["shape"],
+                  "--mesh", DRYRUN["mesh"], "--variant", DRYRUN["variant"],
+                  "--device", dev, "--out", str(out / dev)]
+            for dev in dict.fromkeys((DEV, "cpu"))}
+    cmds["probe"] = [sys.executable, "-c", _DRYRUN_PROBE, DEV]
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+    res = {}
+    try:
+        for k, p in procs.items():
+            so, se = p.communicate(timeout=DRYRUN["timeout_s"])
+            rec = out / k / name
+            res[k] = {"rc": p.returncode, "stdout": so, "stderr": se[-2000:],
+                      "record": (json.loads(rec.read_text())
+                                 if rec.exists() else None)}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res
+
+
+def phase_dryrun(card_line):
+    """One production cell of the dry-run (repro_torch.launch.dryrun):
+    smollm-135m decode_32k on the pod mesh, as rank 0 of a fake 256-rank
+    world, traced once with the fake tensors on the card's device type
+    and once on the CPU: both ok, with equal flops, bytes and
+    collectives; and the flop probe (a product split over the model
+    axis), which must count one rank's local flops, bytes and temporary
+    under this torch.  No kernel runs."""
+    import torch
+    with tempfile.TemporaryDirectory() as d:
+        res = _dryrun_children(Path(d))
+    cells = {k: r["record"] for k, r in res.items() if k != "probe"}
+    keys = ("cost", "args_bytes_per_device", "bytes_per_device",
+            "model_flops_per_device", "n_params")
+    same = all(c is not None and c.get("status") == "ok"
+               for c in cells.values()) and len({
+                   json.dumps({k: c[k] for k in keys}, sort_keys=True)
+                   for c in cells.values()}) == 1
+    try:
+        probe = json.loads(res["probe"]["stdout"].strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        probe = {"error": res["probe"]["stderr"]}
+    ok = (same and all(r["rc"] == 0 for r in res.values())
+          and all(probe.get(k) == v for k, v in DRYRUN_PROBE_WANT.items()))
+    first = next(iter(cells.values())) or {}
+    emit("dryrun", ok, card_line, cell={k: DRYRUN[k] for k in
+                                        ("arch", "shape", "mesh", "variant")},
+         torch=torch.__version__, probe=probe,
+         probe_want=DRYRUN_PROBE_WANT,
+         trace_s={k: (c or {}).get("trace_s") for k, c in cells.items()},
+         costs_equal=same, cost=first.get("cost"),
+         args_bytes_per_device=first.get("args_bytes_per_device"),
+         bytes_per_device=first.get("bytes_per_device"),
+         roofline=first.get("roofline"),
+         errors={k: r["stderr"][-600:] for k, r in res.items()
+                 if r["rc"] != 0})
+
+
 # ---------------------------------------------------- remote chunk stores
 
 def _start_servers(n: int, root: Path) -> list:
@@ -3866,6 +3987,7 @@ def main() -> int:
         counts["train-sharded"] = run("train-sharded", phase_train_sharded)
         counts["train-families"] = run("train-families",
                                        phase_train_families)
+        run("dryrun", phase_dryrun)
         counts["checkpoint-remote"] = run("checkpoint-remote",
                                           phase_checkpoint_remote)
         free_and_reset_peak()

@@ -36,6 +36,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.models.params import tree_map, tree_map_pm
 
@@ -187,6 +188,13 @@ def is_dtensor(x) -> bool:
     ``torch.distributed.tensor`` is imported, so this imports nothing."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+def is_fake(x) -> bool:
+    """True for a fake tensor (``FakeTensorMode``: the dry-run's), or a
+    DTensor whose shard is one."""
+    from torch._subclasses.fake_tensor import is_fake as fake
+    return fake(local(x))
 
 
 def local(t):
@@ -359,7 +367,88 @@ def act_placements(x, logical: Tuple[Optional[str], ...]) -> tuple:
     return placements(spec, x.device_mesh)
 
 
-def local_map(fn, args, in_axes, out_like=()):
+def ctx_spec(logical: Tuple[Optional[str], ...], shape) -> tuple:
+    """The spec ``shard_act`` would give a tensor of ``shape`` under the
+    context (all None outside one)."""
+    if _CTX.mesh is None or _CTX.rules is None:
+        return (None,) * len(shape)
+    return resolve_spec(tuple(logical), tuple(shape), _CTX.mesh, _CTX.rules)
+
+
+#: site -> calls in which ``fake_strided_split`` sent that site's products
+#: to each rank's own shards (the dry-run's record reads it)
+FAKE_LOCAL: Dict[str, int] = {}
+
+
+def fake_strided_split(x, logical: Tuple[Optional[str], ...], shape,
+                       site: str):
+    """The mesh dims of a product's operand laid out as ``logical`` (of
+    ``shape``) under the context, (dim 0's, dim 1's), where `x` is fake
+    (the dry-run's) and that layout splits both its dims 0 and 1 (batch
+    and heads, or batch and groups) and none of the rest; otherwise None.
+    Each such call is counted under ``site`` in ``FAKE_LOCAL``.
+
+    There DTensor splits the products' flattened (dim 0 x dim 1) dim as a
+    ``_StridedShard``, and costing its redistribution calls ``.tolist()``
+    on a tensor it builds, which a fake tensor refuses (data-dependent).
+    The caller then runs the products on each rank's own shards through
+    ``local_map``: the same local products.  On real tensors DTensor keeps
+    planning them, so the numerics stay its plan's (ROADMAP Queue 3: the
+    two plans' backwards differ)."""
+    if ctx_mesh() is None or not is_fake(x):
+        return None
+    spec = ctx_spec(logical, shape)
+    if None in spec[:2] or any(a is not None for a in spec[2:]):
+        return None
+    FAKE_LOCAL[site] = FAKE_LOCAL.get(site, 0) + 1
+    return spec[:2]
+
+
+def fit_split(x, dim: int, lead: int):
+    """`x` made ready to have its dim ``dim`` reshaped into (``lead``,
+    ...): DTensor can only unflatten a dim whose rank count divides the
+    leading output size, so where the mesh dims splitting ``dim`` hold
+    more ranks than divide ``lead`` (4 xLSTM heads on a 16-wide model
+    axis), ``dim`` is gathered whole on them first.  The split of the
+    whole dim is then a split of its heads, or none, as a GSPMD reshape
+    would lay it out.  A plain tensor, or a split that fits, is returned
+    as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dim = dim % x.ndim
+    split = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+    ranks = int(np.prod([x.device_mesh.shape[i] for i in split],
+                        dtype=np.int64))
+    if lead % ranks == 0:
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if i in split else p for i, p in enumerate(x.placements)))
+
+
+def fit_grad(x, dim: int, lead: int):
+    """`x` as it is, whose gradient is made ready for the backward of a
+    reshape that merged (``lead``, ...) into its dim ``dim``: that
+    backward unflattens the gradient's dim, so its split goes through
+    ``fit_split`` first.  Apply it to the merged tensor.  A plain tensor
+    is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    return _FitGrad.apply(x, dim, lead)
+
+
+class _FitGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, lead):
+        ctx.dim, ctx.lead = dim, lead
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fit_split(g, ctx.dim, ctx.lead), None, None
+
+
+def local_map(fn, args, in_axes, out_like=(), grad_placements=None):
     """``fn(*locals)`` on this rank's shards, with stated placements: each
     tensor argument is first laid out by its logical axes in ``in_axes``
     (``shard_act``'s resolution) or by an entry of placements, and handed
@@ -372,9 +461,14 @@ def local_map(fn, args, in_axes, out_like=()):
     entry ``"local"`` hands over a DTensor's own shard as it is laid out,
     so ``fn`` may write into it in place.  Output ``i`` of ``fn`` becomes
     a DTensor with the
-    placements of argument ``out_like[i]``, its global shape that of its
-    local shape times the splits.  A function that only writes in place
-    returns nothing, with ``out_like=()``.
+    placements of argument ``out_like[i]`` (or, where that entry is a
+    tuple, those placements), its global shape that of its local shape
+    times the splits.  A function that only writes in place
+    returns nothing, with ``out_like=()``.  ``grad_placements`` maps an
+    argument's index to the placements its local gradient comes back in,
+    where they are not its layout's: a weight whole on every rank that
+    each rank applies to its own tokens has a gradient that is a partial
+    sum (``Partial``) over the mesh dims that split the tokens.
 
     Outside a mesh context ``fn`` gets the arguments as they are.  The
     hand kernels are reached through here: they take plain tensors only
@@ -385,7 +479,8 @@ def local_map(fn, args, in_axes, out_like=()):
         return fn(*args)
     from torch.distributed.tensor import DTensor
     laid, local = [], []
-    for a, axes in zip(args, in_axes):
+    grads = grad_placements or {}
+    for i, (a, axes) in enumerate(zip(args, in_axes)):
         a = replicate(a)
         if axes != "local":
             logical = isinstance(axes[0], str) or axes[0] is None
@@ -393,15 +488,15 @@ def local_map(fn, args, in_axes, out_like=()):
                                else tuple(axes))
         laid.append(a)
         # the gradient of the local tensor comes back in these placements
-        local.append(a.to_local(grad_placements=a.placements))
+        local.append(a.to_local(grad_placements=grads.get(i, a.placements)))
     out = fn(*local)
     if not out_like:
         return out
     single = not isinstance(out, tuple)
     outs = (out,) if single else out
-    wrapped = tuple(DTensor.from_local(o, mesh, laid[i].placements,
-                                       run_check=False)
-                    for o, i in zip(outs, out_like))
+    wrapped = tuple(DTensor.from_local(
+        o, mesh, laid[i].placements if isinstance(i, int) else tuple(i),
+        run_check=False) for o, i in zip(outs, out_like))
     return wrapped[0] if single else wrapped
 
 

@@ -19,7 +19,8 @@ work, and are taken back off too.
 ``flash_attention`` and ``rglru`` take plain tensors and raise
 ``TypeError`` on a DTensor: on a mesh the model reaches them through
 ``distributed.sharding.local_map``, each rank on its own heads or
-channels.
+channels.  Every wrapper raises ``TypeError`` on a fake CUDA tensor (the
+dry-run's), which has no storage for a kernel to read.
 
 ``flash_attention`` is an ``autograd.Function``, as the reference's is a
 custom_vjp: the forward is the kernel (its plain version on the CPU), and
@@ -35,7 +36,7 @@ import contextlib
 
 import torch
 
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import is_dtensor, is_fake
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import rglru as _rg
@@ -111,6 +112,19 @@ def _refuse_dtensor(name: str, *tensors) -> None:
             f"through repro_torch.distributed.sharding.local_map")
 
 
+def _refuse_fake(name: str, *tensors) -> None:
+    """A fake tensor (``FakeTensorMode``: shapes and a device, no storage)
+    on CUDA would hand the kernel a pointer to nothing.  The dry-run
+    traces with the reference's backends and reaches no kernel; a fake
+    tensor that arrives here is refused, not run through the plain
+    version."""
+    if any(is_fake(t) for t in tensors):
+        raise TypeError(
+            f"{name} got a fake tensor: the CUDA kernels need storage.  "
+            f"Trace with the \"chunked\" attention and \"scan\" recurrence "
+            f"backends, as repro_torch.launch.dryrun does")
+
+
 def _refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
@@ -127,6 +141,7 @@ def _flash_fwd(q, k, v, causal, window):
     _refuse_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref_flash_attention(q, k, v, causal=causal, window=window)
+    _refuse_fake("flash_attention", q, k, v)
     out = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
     FLASH_LAUNCHES += 1
     return out
@@ -163,6 +178,7 @@ def rglru(a, x, h0):
     _refuse_grad("rglru", a, x, h0)
     if a.device.type == "cpu":
         return ref_rglru(a, x, h0)
+    _refuse_fake("rglru", a, x, h0)
     out = _rg.rglru_scan(a, x, h0)
     RGLRU_LAUNCHES += 1
     return out
@@ -174,6 +190,7 @@ def quantize_int8(x, block: int = 256):
     global QUANT_LAUNCHES
     if x.device.type == "cpu":
         return ref_quantize_int8(x, block=block)
+    _refuse_fake("quantize_int8", x)
     out = _q.quantize_int8(x, block=block)
     QUANT_LAUNCHES += 1
     return out
@@ -183,6 +200,7 @@ def dequantize_int8(q, scales):
     global DEQUANT_LAUNCHES
     if q.device.type == "cpu":
         return ref_dequantize_int8(q, scales)
+    _refuse_fake("dequantize_int8", q, scales)
     out = _q.dequantize_int8(q, scales)
     DEQUANT_LAUNCHES += 1
     return out

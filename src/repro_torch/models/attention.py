@@ -42,7 +42,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import (ctx_divisible, ctx_mesh,
-                                              local_map, replicate,
+                                              fake_strided_split, local_map,
+                                              placements, replicate,
                                               shard_act, window)
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_rope,
                                        rms_head_norm, rope_cos_sin, rope_qk)
@@ -182,6 +183,7 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
     scale = hd ** -0.5
     hd_v = v.shape[-1]
     n_chunks = max(sq // q_chunk, 1)
+    ql = sq // n_chunks
     if _expand(kvh, h):
         g = h // kvh
         ke = shard_act(k.repeat_interleave(g, dim=2).float(),
@@ -189,7 +191,7 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
         ve = shard_act(v.repeat_interleave(g, dim=2),
                        ("batch", None, "heads", None))
 
-        def chunk_e(qc, qpos_c):
+        def chunk_e(qc, qpos_c, ke, ve, k_positions):
             s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), ke) * scale
             s = shard_act(s, ("batch", "heads", "seq", "kv_seq"))
             if causal:
@@ -197,14 +199,18 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
             p = _softmax_fp32(s)
             return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), ve)
 
-        outs = [chunk_e(qc, pc) for qc, pc in
-                zip(q.chunk(n_chunks, dim=1), q_positions.chunk(n_chunks))]
-        return outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
+        def core_e(q, ke, ve, q_positions, k_positions):
+            outs = [chunk_e(qc, pc, ke, ve, k_positions) for qc, pc in
+                    zip(q.chunk(n_chunks, dim=1),
+                        q_positions.chunk(n_chunks))]
+            return outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
 
-    kf = k.float()
-    qf = _fold_gqa(q, kvh)                            # (B,Sq,KV,G,hd)
+        return _on_local_heads(
+            core_e, (q, ke, ve, q_positions, k_positions),
+            _head_specs(q, ("batch", "heads", "seq", "kv_seq"),
+                        (b, h, ql, k.shape[1])))
 
-    def chunk(qc, qpos_c):
+    def chunk(qc, qpos_c, kf, v, k_positions):
         # fp32 scores (the reference's preferred_element_type=float32)
         s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
         s = shard_act(s, ("batch", "kv_heads", "heads", "seq", "kv_seq"))
@@ -213,10 +219,46 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
         p = _softmax_fp32(s)
         return torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), v)
 
-    outs = [chunk(qc, pc) for qc, pc in
-            zip(qf.chunk(n_chunks, dim=1), q_positions.chunk(n_chunks))]
-    out = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
-    return out.reshape(b, sq, h, hd_v)
+    def core(q, kf, v, q_positions, k_positions):
+        qf = _fold_gqa(q, kf.shape[2])                # (B,Sq,KV,G,hd)
+        outs = [chunk(qc, pc, kf, v, k_positions) for qc, pc in
+                zip(qf.chunk(n_chunks, dim=1), q_positions.chunk(n_chunks))]
+        out = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
+        return out.reshape(q.shape[0], sq, q.shape[2], hd_v)
+
+    return _on_local_heads(
+        core, (q, k.float(), v, q_positions, k_positions),
+        _head_specs(q, ("batch", "kv_heads", "heads", "seq", "kv_seq"),
+                    (b, kvh, h // kvh, ql, k.shape[1])))
+
+
+def _head_specs(q, s_axes, s_shape):
+    """The specs that run an attention core on each rank's own rows and
+    heads where its scores (logical ``s_axes`` (batch, heads or kv_heads,
+    ...), shape ``s_shape``) are laid out as ``fake_strided_split``
+    allows: q and k/v (B, S, H|KV, hd) split as the scores split their
+    dims 0 and 1, the positions ((S,)) whole and the masks ((B, S)) by
+    the batch.  Otherwise None, and the core runs on DTensors (or plain
+    tensors) as they are."""
+    split = fake_strided_split(q, s_axes, s_shape, "attention")
+    if split is None:
+        return None
+    sb, sh = split
+    return {"qkv": (sb, None, sh, None), "pos": (None,), "rows": (sb, None)}
+
+
+def _on_local_heads(core, args, specs, kinds=("qkv", "qkv", "qkv", "pos",
+                                              "pos")):
+    """``core(*args)`` (the scores, their softmax and the weighted values)
+    on each rank's own batch rows and heads through ``local_map``, each
+    argument laid out by the entry of ``specs`` its kind names, the result
+    laid out as q.  With ``specs`` None, ``core`` runs on the arguments as
+    they are."""
+    if specs is None:
+        return core(*args)
+    mesh = ctx_mesh()
+    return local_map(core, args, tuple(placements(specs[k], mesh)
+                                       for k in kinds), out_like=(0,))
 
 
 # --------------------------------------------------------------------------
@@ -343,25 +385,38 @@ def attn_decode(cfg: ArchConfig, p, x, cache, pos, *, policy=DEFAULT_POLICY):
     else:
         valid = idx[None] <= pos[:, None]                     # (B,S)
 
-    h = cfg.n_heads
+    h, b = cfg.n_heads, x.shape[0]
     if _expand(kvh, h):
         g = h // kvh
         cke = shard_act(ck.repeat_interleave(g, dim=2),
                         ("batch", "kv_seq", "heads", None))
         cve = shard_act(cv.repeat_interleave(g, dim=2),
                         ("batch", "kv_seq", "heads", None))
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), cke.float()) * (hd ** -0.5)
-        s = shard_act(s, ("batch", "heads", None, "kv_seq"))
-        s = torch.where(valid[:, None, None], s, NEG_INF)
-        pr = _softmax_fp32(s).to(x.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", pr, cve)
+
+        def core_e(q, cke, cve, valid):
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(), cke.float()) * (hd ** -0.5)
+            s = shard_act(s, ("batch", "heads", None, "kv_seq"))
+            s = torch.where(valid[:, None, None], s, NEG_INF)
+            pr = _softmax_fp32(s).to(x.dtype)
+            return torch.einsum("bhqk,bkhd->bqhd", pr, cve)
+
+        o = _on_local_heads(core_e, (q, cke, cve, valid), _head_specs(
+            q, ("batch", "heads", None, "kv_seq"), (b, h, 1, s_cache)),
+            ("qkv", "qkv", "qkv", "rows"))
     else:
-        qf = _fold_gqa(q, kvh)                                # (B,1,KV,G,hd)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), ck.float()) * (hd ** -0.5)
-        s = shard_act(s, ("batch", "kv_heads", "heads", None, "kv_seq"))
-        s = torch.where(valid[:, None, None, None], s, NEG_INF)
-        pr = _softmax_fp32(s).to(x.dtype)
-        o = torch.einsum("bkgqs,bskd->bqkgd", pr, cv)
+        def core(q, ck, cv, valid):
+            qf = _fold_gqa(q, ck.shape[2])                    # (B,1,KV,G,hd)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), ck.float()) * (hd ** -0.5)
+            s = shard_act(s, ("batch", "kv_heads", "heads", None, "kv_seq"))
+            s = torch.where(valid[:, None, None, None], s, NEG_INF)
+            pr = _softmax_fp32(s).to(x.dtype)
+            o = torch.einsum("bkgqs,bskd->bqkgd", pr, cv)
+            return o.reshape(q.shape[0], 1, q.shape[2], hd)
+
+        o = _on_local_heads(core, (q, ck, cv, valid), _head_specs(
+            q, ("batch", "kv_heads", "heads", None, "kv_seq"),
+            (b, kvh, h // kvh, 1, s_cache)),
+            ("qkv", "qkv", "qkv", "rows"))
     o = o.reshape(x.shape[0], 1, cfg.n_heads, hd)
     y = torch.einsum("bshk,hkd->bsd", o, policy.c(p["wo"]))
     return y, {"k": ck, "v": cv}

@@ -23,11 +23,15 @@ rows, so the routing is the one-device forward's.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import shard_act
+from repro_torch.distributed.sharding import (ctx_mesh, fake_strided_split,
+                                              local_map, placements,
+                                              shard_act)
 from repro_torch.models.layers import DEFAULT_POLICY, Pm, _act, apply_mlp, mlp_defs
 
 GROUP_SIZE = 256
@@ -74,16 +78,12 @@ def route(cfg: ArchConfig, p, xg, policy=DEFAULT_POLICY):
             "gates": gates_e, "pos": pos, "keep": keep, "cap": cap}
 
 
-def apply_moe(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY):
-    """x (B,S,D) -> (y (B,S,D), aux_loss fp32 scalar)."""
-    e = cfg.moe
-    c = policy.c
-    b, s, d = x.shape
-    gs = min(GROUP_SIZE, s)
-    ng = s // gs
-    assert ng * gs == s, (s, gs)
-    xg = x.reshape(b, ng, gs, d)
-    r = route(cfg, p, xg, policy)
+def _routed(cfg, policy, xg, router, wi, wg, wo):
+    """The routed experts over grouped tokens xg (B,n,G,D): route,
+    dispatch to each expert's capacity slots, run every expert's FFN over
+    its slots and combine.  Returns y (B,n,G,D) and the routing mask and
+    probs (B,n,G,E) the aux loss reads."""
+    r = route(cfg, {"router": router}, xg, policy)
     cap, keep = r["cap"], r["keep"]
     posi = torch.clamp(r["pos"], 0, cap - 1).long()
 
@@ -95,22 +95,80 @@ def apply_moe(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY):
 
     xin = torch.einsum("bngec,bngd->bnecd", dispatch, xg)        # (B,n,E,C,D)
     xin = shard_act(xin, ("batch", "moe_groups", "experts", None, "embed"))
-    h = torch.einsum("bnecd,edf->bnecf", xin, c(p["wi"]))
-    g = torch.einsum("bnecd,edf->bnecf", xin, c(p["wg"]))
+    h = torch.einsum("bnecd,edf->bnecf", xin, wi)
+    g = torch.einsum("bnecd,edf->bnecf", xin, wg)
     h = _act(cfg, g) * h
-    out = torch.einsum("bnecf,efd->bnecd", h, c(p["wo"]))
+    out = torch.einsum("bnecf,efd->bnecd", h, wo)
     out = shard_act(out, ("batch", "moe_groups", "experts", None, "embed"))
-    y = torch.einsum("bngec,bnecd->bngd", combine, out).reshape(b, s, d)
+    y = torch.einsum("bngec,bnecd->bngd", combine, out)
+    return y, r["mask"], r["probs"]
+
+
+def _token_split(x, combine_shape):
+    """The mesh dims splitting the combine weights' (of
+    ``combine_shape``) batch and groups, where ``fake_strided_split``
+    runs the routed experts on each rank's own tokens: fake tokens `x`
+    whose groups take the model axis (not a decode step's one group,
+    where the experts take it).  Otherwise None."""
+    return fake_strided_split(
+        x, ("batch", "moe_groups", None, "experts", "expert_cap"),
+        combine_shape, "moe")
+
+
+def _on_local_tokens(routed, args, spec):
+    """``routed(xg, router, wi, wg, wo)`` on each rank's own tokens
+    through ``local_map``, split over the mesh dims ``spec``
+    (``_token_split``'s; with None, ``routed`` runs on the arguments as
+    they are): each rank then holds all the experts of its own groups, so
+    the router and expert weights enter whole (their split gathered) and
+    their gradients come back as partial sums over the mesh dims that
+    split the tokens."""
+    if spec is None:
+        return routed(*args)
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = ctx_mesh()
+    tok = placements(tuple(spec) + (None, None), mesh)
+    whole = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if p.is_shard() else Replicate() for p in tok)
+    return local_map(routed, args, (tok,) + (whole,) * 4, out_like=(0, 0, 0),
+                     grad_placements={i: part for i in range(1, 5)})
+
+
+def apply_moe(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY):
+    """x (B,S,D) -> (y (B,S,D), aux_loss fp32 scalar)."""
+    e = cfg.moe
+    c = policy.c
+    b, s, d = x.shape
+    gs = min(GROUP_SIZE, s)
+    ng = s // gs
+    assert ng * gs == s, (s, gs)
+    xg = x.reshape(b, ng, gs, d)
+    split = _token_split(x, (b, ng, gs, e.n_routed,
+                             _group_capacity(gs, e)))
+    y, mask, probs = _on_local_tokens(
+        functools.partial(_routed, cfg, policy),
+        (xg, c(p["router"]), c(p["wi"]), c(p["wg"]), c(p["wo"])), split)
+    y = y.reshape(b, s, d)
+    if split is not None:
+        # each rank holds its own groups' tokens: gathered back to the
+        # layout of a block's output before the shared experts' output
+        # joins them, so no product downstream sees a split sequence
+        y = shard_act(y, ("batch", "seq", "embed"))
 
     if e.n_shared:
         sh = apply_mlp(cfg, p["shared"], x, policy)
+        if split is not None:
+            # the row-parallel product's partial sums reduced, as a
+            # block's output, before they join y laid out so: left
+            # partial, DTensor may reduce-scatter them over the sequence
+            sh = shard_act(sh, ("batch", "seq", "embed"))
         if e.shared_gate:
             sh = sh * torch.sigmoid(
                 (x @ c(p["shared_gate"])).float()).to(sh.dtype)
         y = y + sh
 
     # load-balance aux (Switch): E * sum_e f_e * P_e
-    f = torch.mean(r["mask"], dim=(0, 1, 2))
-    pmean = torch.mean(r["probs"], dim=(0, 1, 2))
+    f = torch.mean(mask, dim=(0, 1, 2))
+    pmean = torch.mean(probs, dim=(0, 1, 2))
     aux = e.aux_coef * e.n_routed * torch.sum(f * pmean)
     return y, aux

@@ -18,15 +18,27 @@ The conv window is held in the compute dtype, the rest in fp32.
 ``mlstm_decode`` updates its state in place (C is (B, 4, 1024, 1024)
 fp32 a layer at full width: a new one a step would be a copy of it);
 ``slstm_decode`` returns a new state, as ``rglru_decode`` does.
+
+On a mesh the chunk loop and the sLSTM's loop over time run on each
+rank's own batch rows and heads through ``sharding.local_map`` (neither
+mixes rows or heads), so DTensor dispatches none of their per-step ops.
+Where the model axis does not divide the heads (xlstm-1.3b's 4 on the
+production mesh's 16), the inner channels are gathered before they are
+split into heads (``sharding.fit_split``), and the merged heads'
+gradients likewise (``sharding.fit_grad``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import (is_dtensor, local_map,
-                                              replicate, shard_act)
+from repro_torch.distributed.sharding import (ctx_mesh, ctx_spec, fit_grad,
+                                              fit_split, is_dtensor,
+                                              local_map, placements,
+                                              shard_act)
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_norm,
                                        norm_defs, residual)
 
@@ -84,12 +96,18 @@ def _logsigmoid(x):
 
 
 def _heads(x, h):
+    """(B,S,H*hd) -> (B,S,H,hd); on a mesh whose model axis does not
+    divide the heads the channels are gathered whole first
+    (``sharding.fit_split``)."""
     b, s, di = x.shape
-    return x.reshape(b, s, h, di // h)
+    return fit_split(x, -1, h).reshape(b, s, h, di // h)
 
 
 def _mlstm_gates(cfg, p, xc, policy):
-    g = (xc @ policy.c(p["wgate"])).float()                  # (B,S,2H)
+    # on a mesh xc's inner width is split: the partial sums are reduced
+    # once here, not once for each half and each use
+    g = shard_act((xc @ policy.c(p["wgate"])).float(),
+                  ("batch", "seq", None))                    # (B,S,2H)
     h = cfg.n_heads
     return g[..., :h], _logsigmoid(g[..., h:])              # logi, logf
 
@@ -130,8 +148,8 @@ def _chunk_step(C, n, m, qc, kc, vc, li, lf):
     Fc = torch.cumsum(lf, dim=1)                             # inclusive
     # decay of (k_j, v_j) arriving at i: F_i - F_j + li_j (j <= i)
     Dij = Fc[:, :, None] - Fc[:, None, :] + li[:, None, :]   # (B,L,L,H)
-    causal = replicate(torch.tril(torch.ones(
-        (L, L), dtype=torch.bool, device=qc.device)))[None, :, :, None]
+    causal = torch.tril(torch.ones(
+        (L, L), dtype=torch.bool, device=qc.device))[None, :, :, None]
     Dij = torch.where(causal, Dij, -torch.inf)
     m_intra = torch.amax(Dij, dim=2)                         # (B,L,H)
     m_inter = Fc + m[:, None]
@@ -161,6 +179,39 @@ def _chunk_step(C, n, m, qc, kc, vc, li, lf):
     return C_new, n_new, m_next, hout
 
 
+def _mlstm_chunks(q, k, v, logi, logf, C, n, m, L):
+    """``_chunk_step`` over the sequence in chunks of L: every chunk's
+    output (B,S,H,hd) fp32 and the last carry."""
+    hs = []
+    for i in range(0, q.shape[1], L):
+        C, n, m, hout = _chunk_step(C, n, m, q[:, i:i + L], k[:, i:i + L],
+                                    v[:, i:i + L], logi[:, i:i + L],
+                                    logf[:, i:i + L])
+        hs.append(hout)
+    return torch.cat(hs, dim=1), C, n, m
+
+
+def _chunks_on_local_heads(q, k, v, logi, logf, C, n, m, L):
+    """``_mlstm_chunks`` on each rank's own batch rows and heads through
+    ``local_map``: the chunkwise form never mixes rows or heads, so each
+    rank runs it on plain tensors, and DTensor plans none of its products
+    or its many elementwise ops.  Outside a mesh it runs on the tensors
+    as they are."""
+    mesh = ctx_mesh()
+    if mesh is None:
+        return _mlstm_chunks(q, k, v, logi, logf, C, n, m, L)
+    sb, sh = ctx_spec(("batch", "heads"), tuple(m.shape))
+    qkv = placements((sb, None, sh, None), mesh)
+    gate = placements((sb, None, sh), mesh)
+    return local_map(functools.partial(_mlstm_chunks, L=L),
+                     (q, k, v, logi, logf, C, n, m),
+                     (qkv, qkv, qkv, gate, gate,
+                      placements((sb, sh, None, None), mesh),
+                      placements((sb, sh, None), mesh),
+                      placements((sb, sh), mesh)),
+                     out_like=(0, 5, 6, 7))
+
+
 def mlstm_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
     """Full-sequence mLSTM block.  Returns (y, new_state).  S must be at
     most CHUNK or a multiple of it, as the reference asserts."""
@@ -178,13 +229,8 @@ def mlstm_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
 
     L = min(CHUNK, s)
     assert s % L == 0, (s, L)
-    hs = []
-    for i in range(0, s, L):
-        C, n, m, hout = _chunk_step(C, n, m, q[:, i:i + L], k[:, i:i + L],
-                                    v[:, i:i + L], logi[:, i:i + L],
-                                    logf[:, i:i + L])
-        hs.append(hout)
-    hseq = torch.cat(hs, dim=1).reshape(b, s, h * hd).to(policy.compute)
+    hout, C, n, m = _chunks_on_local_heads(q, k, v, logi, logf, C, n, m, L)
+    hseq = fit_grad(hout.reshape(b, s, h * hd), -1, h).to(policy.compute)
     y = _mlstm_out(cfg, p, x, hseq, z, policy)
     return y, {"conv": new_conv, "C": C, "n": n, "m": m}
 
@@ -279,6 +325,44 @@ def _slstm_cell(gx, state, rr):
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
+def _slstm_scan(gx, c, n, hh, m, rr):
+    """The loop over time from the state (c, n, h, m): the h of every
+    step (B,S,H,hd) and the last state."""
+    state = {"c": c, "n": n, "h": hh, "m": m}
+    hs = []
+    for t in range(gx.shape[1]):
+        state = _slstm_cell(gx[:, t], state, rr)
+        hs.append(state["h"])
+    return (torch.stack(hs, dim=1), state["c"], state["n"], state["h"],
+            state["m"])
+
+
+def _scan_on_local_heads(gx, state, rr):
+    """``_slstm_scan`` on each rank's own batch rows and heads through
+    ``local_map``: the recurrence never mixes rows or heads, so each
+    rank loops over time on plain tensors, with none of DTensor's
+    dispatch at each of the S steps.  The recurrent weights rr
+    (H, hd, 4*hd) enter split as the heads, their gradient a partial sum
+    over the mesh dims that split the batch.  Outside a mesh the loop
+    runs on the tensors as they are."""
+    mesh = ctx_mesh()
+    if mesh is None:
+        return _slstm_scan(gx, *state, rr)
+    from torch.distributed.tensor import Partial
+    sb, sh = ctx_spec(("batch", "heads", None), tuple(state[0].shape))[:2]
+    st = placements((sb, sh, None), mesh)
+    rr_at = placements((sh, None, None), mesh)
+    rows = placements((sb,), mesh)
+    grad = tuple(Partial() if r.is_shard() else p
+                 for r, p in zip(rows, rr_at))
+    return local_map(_slstm_scan, (gx, *state, rr),
+                     (placements((sb, None, None, sh, None), mesh),
+                      st, st, st, st, rr_at),
+                     out_like=(placements((sb, None, sh, None), mesh),
+                               1, 2, 3, 4),
+                     grad_placements={5: grad})
+
+
 def slstm_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
     """Full-sequence sLSTM block, a loop over time, then its gated FFN.
     Returns (y, new_state)."""
@@ -287,7 +371,7 @@ def slstm_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
     h = cfg.n_heads
     hd = d // h
     xi = apply_norm(cfg, p["norm"], x, policy)
-    gx = (xi @ c(p["wx"])).reshape(b, s, 4, h, hd).float()
+    gx = fit_split(xi @ c(p["wx"]), -1, 4).reshape(b, s, 4, h, hd).float()
     # on a mesh wx's split of 4·d lands on the gate dim: each rank takes
     # all four gates of its own heads, as its recurrent weights are split
     gx = shard_act(gx, ("batch", None, None, "heads", None))
@@ -295,12 +379,10 @@ def slstm_apply(cfg: ArchConfig, p, x, policy=DEFAULT_POLICY, state=None):
         zero = torch.zeros_like(gx[:, 0, 0])        # (B,H,hd), laid as gx
         state = {"c": zero, "n": zero + 1e-6, "h": zero,
                  "m": torch.full_like(zero, -1e30)}
-    rr = _r_heads(p["r"])
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(gx[:, t], state, rr)
-        hs.append(state["h"])
-    hseq = torch.stack(hs, dim=1).reshape(b, s, d)
+    hseq, *last = _scan_on_local_heads(
+        gx, [state[k] for k in "cnhm"], _r_heads(p["r"]))
+    state = dict(zip("cnhm", last))
+    hseq = fit_grad(hseq.reshape(b, s, d), -1, h)
     hn = hseq * torch.rsqrt(torch.mean(hseq * hseq, dim=-1, keepdim=True)
                             + cfg.norm_eps)
     y = residual(x, (hn * p["hnorm"]).to(policy.compute))

@@ -953,3 +953,41 @@ def test_chip_smoke_train_sharded_phase_on_cpu(smoke, capsys):
     assert world["ok"] and world["mesh"] == {"data": 1, "model": 2}
     assert [r["rank"] for r in world["per_rank"]] == [0, 1]
     assert line["phase_s"] > 0
+
+
+def test_chip_smoke_dryrun_phase_on_cpu(smoke, capsys):
+    """The dryrun phase on the CPU (DEV is the CPU, so one cell): smollm-135m
+    decode_32k through ``python -m repro_torch.launch.dryrun`` as rank 0
+    of a fake 256-rank world, ok, its 31 all-reduces, its trace_s and this
+    torch's version; the probe counts the rank's local product: its
+    flops, modelled bytes and one temporary."""
+    smoke.phase_dryrun("cpu rehearsal, 0 W")
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "dryrun"'))
+    assert line["ok"] and line["costs_equal"]
+    assert line["cell"] == {"arch": "smollm-135m", "shape": "decode_32k",
+                            "mesh": "pod", "variant": "auto"}
+    assert set(line["trace_s"]) == {"cpu"} and line["trace_s"]["cpu"] > 0
+    assert line["torch"] == torch.__version__
+    assert line["probe_want"] == {
+        "flops": 2 * 64 * 4096 * 256,
+        "bytes": 4 * (64 * 4096 + 4096 * 256 + 64 * 256),
+        "peak_temp_bytes": 4 * 64 * 256}
+    for key, want in line["probe_want"].items():
+        assert line["probe"][key] == want, (key, line["probe"])
+    assert line["cost"]["collective_count"] == 31 and not line["errors"]
+
+
+def test_chip_smoke_dryrun_phase_fails_on_unequal_costs(smoke, monkeypatch):
+    """Records that disagree between the two devices fail the phase."""
+    rec = {"status": "ok", "trace_s": 1.0, "args_bytes_per_device": 1,
+           "bytes_per_device": 2, "model_flops_per_device": 3.0,
+           "n_params": 4, "cost": {"flops_per_device": 5.0}}
+    probe = json.dumps(smoke.DRYRUN_PROBE_WANT)
+    monkeypatch.setattr(smoke, "_dryrun_children", lambda out: {
+        "cuda": {"rc": 0, "stdout": "", "stderr": "", "record": rec},
+        "cpu": {"rc": 0, "stdout": "", "stderr": "", "record": dict(
+            rec, cost={"flops_per_device": 6.0})},
+        "probe": {"rc": 0, "stdout": probe, "stderr": "", "record": None}})
+    with pytest.raises(smoke.PhaseFailed, match="dryrun"):
+        smoke.phase_dryrun("cpu rehearsal, 0 W")
