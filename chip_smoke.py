@@ -61,6 +61,28 @@ one JSON line each; any failure exits non-zero:
                  restored into a 2-rank CPU world under (1, 2) baseline
                  and (2, 1) fsdp: each rank's shard its resolve_spec
                  window of the tree, bit for bit
+  rankworld      the paper's proxy MPI runtime beside the tensor layer:
+                 4 thread ranks of the port's MPIJob over shm run the
+                 numpy data-parallel MLP of distributed/proxy_grad.py
+                 (din 1024, dh 4096, dout 1024, 64 rows a rank: 33.6 MB of
+                 fp32 params a rank through the ring allreduce), a 10-step
+                 run checkpointed at step 6 with resume=False; full-width
+                 smollm-135m's fp32 tree (seed 0) built on the card and
+                 saved by CheckpointManager(generation=0); then one
+                 atomic_reshape: one membership bump, rank 3 dead, 4 -> 3
+                 ranks and shm -> tcp, the tree restored onto the card's
+                 1-rank mesh: generation 1 in every layer, layers
+                 (mesh, world), leaves on the card bit-equal to the tree
+                 built, survivors bit-equal to their images under the
+                 compacted rank map, a generation-0 report rejected, all
+                 ranks' params equal after the 4 remaining steps; a
+                 same-shape restart onto inproc bit-equal to an
+                 uninterrupted run; a 4-rank world whose sends cross the
+                 step boundary (8 MiB fp64 messages) checkpointed at step
+                 6 with one message a rank drained into the images,
+                 restarted onto tcp bit-equal to its uninterrupted run;
+                 the seconds of each stage and the drained messages.  No
+                 kernel runs
   serve-parity-hybrid
                  full-width recurrentgemma-9b (seeded random weights), fp32,
                  B=1, prompt 2560 (past the 2048 window): kernels vs plain
@@ -346,6 +368,18 @@ PRE_STEPS = 2
 ELASTIC = dict(ranks=4, mesh=(2, 2), reverse_ranks=2, batch=4, prompt=128,
                new_tokens=32, world_timeout_s=300)
 CORRUPT_RANK = None          # a rank whose restored shard is corrupted
+# the rankworld phase: the paper's proxy MPI runtime (thread world) running
+# the reference's numpy data-parallel MLP, 33.6 MB of fp32 params a rank
+# through the ring allreduce; checkpointed at ckpt_at of a steps-step run,
+# then one reshape (dead ranks, a transport switch) and a same-shape restart;
+# beside it a world whose sends cross the step boundary (boundary_width
+# fp64 a message, one ring chunk of the MLP's allreduce), so the
+# checkpoint drains one message a rank, restarted onto boundary_to
+RANKWORLD = dict(ranks=4, dead=(3,), din=1024, dh=4096, dout=1024,
+                 batch_per_rank=64, steps=10, ckpt_at=6, transport="shm",
+                 reshape_to="tcp", same_shape_to="inproc",
+                 boundary_width=1 << 20, boundary_to="tcp", timeout_s=300)
+CORRUPT_IMAGE = None         # a rank whose app part is corrupted on disk
 REMOTE_LEGS = {"local": 0, "remote": 1, "sharded": 3}
 # the sharded phase: its CPU worlds (ranks, mesh) and their model, ARCH's
 # widths at a depth cut (the full-depth random stack is chaotic), fp32;
@@ -1496,6 +1530,212 @@ def phase_elastic(card_line):
                 "logits_equal": logits_equal},
          reverse=reverse, peak_bytes=peak_bytes())
     return launches
+
+
+# ---------------------------------------------------------------- rankworld
+
+def _corrupt_app_part(ckpt_dir: Path, rank: int) -> str:
+    """Flip one byte in the middle of `rank`'s app part on disk (the
+    rehearsal's fault); returns the chunk's name."""
+    from repro_torch.core.ckpt_protocol import load_manifest
+    man = load_manifest(ckpt_dir)
+    name = man["ranks"][str(rank)]["parts"]["app"]["chunk"]
+    path = ckpt_dir / man.get("chunk_dir", "chunks") / name
+    blob = bytearray(path.read_bytes())
+    blob[len(blob) // 2] ^= 1
+    path.write_bytes(bytes(blob))
+    return name
+
+
+def _boundary_app(width: int):
+    """A rank application whose sends cross step boundaries: what rank r
+    sends in step k (seeded normals, `width` fp64), rank r + 1 receives in
+    step k + 1, so a checkpoint between two steps drains one message a
+    rank into the images; an allreduce of the sum every fourth step."""
+    import numpy as np
+
+    def init_fn(mpi):
+        return {"acc": np.zeros(width, np.float64)}
+
+    def step_fn(mpi, st, k):
+        n, me = mpi.Comm_size(), mpi.Comm_rank()
+        msg = np.random.default_rng(1000 * k + me).standard_normal(width)
+        mpi.Send(msg, (me + 1) % n, tag=k % 5)
+        if k > 0:
+            st["acc"] = st["acc"] + mpi.Recv(source=(me - 1) % n,
+                                             tag=(k - 1) % 5)
+        if k % 4 == 3:
+            st["sum"] = mpi.Allreduce(st["acc"].copy(), "sum")
+        return st
+
+    return init_fn, step_fn
+
+
+def phase_rankworld(card_line):
+    """The rank world beside the tensor layer, under one membership bump:
+    full-width smollm-135m's fp32 tree (seed 0) built on the card and saved
+    by CheckpointManager(generation=0); RANKWORLD's data-parallel MLP run by
+    the port's MPIJob (thread ranks, proxies, the shm transport) and
+    checkpointed at ckpt_at with resume=False; then atomic_reshape of both
+    layers: the tree restored onto the card's 1-rank mesh and the world
+    shrunk past RANKWORLD's dead ranks onto another transport, which runs
+    to the end.  Then a same-shape restart onto a third transport against
+    an uninterrupted run, bit for bit.  Last, _boundary_app's world, whose
+    checkpoint drains one in-flight message a rank into the images,
+    restarted onto another transport against its uninterrupted run, bit
+    for bit.  No kernel runs: the counts are set to 0 before and read
+    after."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.core.ckpt_protocol import load_manifest, load_rank_image
+    from repro_torch.core.coordinator import Membership, StaleGenerationError
+    from repro_torch.core.runtime import MPIJob
+    from repro_torch.distributed.elastic import atomic_reshape, choose_mesh
+    from repro_torch.distributed.proxy_grad import make_dp_app
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.models.registry import get_api
+    rw = RANKWORLD
+    n = rw["ranks"]
+    free_and_reset_peak()
+    cfg = get_arch(ARCH)
+    init_fn, step_fn = make_dp_app(din=rw["din"], dh=rw["dh"],
+                                   dout=rw["dout"],
+                                   batch_per_rank=rw["batch_per_rank"])
+    seconds, checks, info = {}, {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    def run_to_end(job):
+        try:
+            return job.run(rw["steps"], timeout=rw["timeout_s"])
+        finally:
+            job.stop()
+
+    def params_equal(a, b):
+        return set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+    def boundary_world(ck):
+        b_init, b_step = _boundary_app(rw["boundary_width"])
+        control = timed("boundary_uninterrupted_s", lambda: run_to_end(
+            MPIJob(n, b_step, b_init, transport=rw["transport"])))
+        job = MPIJob(n, b_step, b_init, transport=rw["transport"])
+        job.checkpoint_at(rw["ckpt_at"], ck, resume=False)
+        timed("boundary_checkpointed_s", lambda: run_to_end(job))
+        info["boundary_drained_messages"] = job.coord.stats[
+            "drained_messages"]
+        checks["boundary_drained"] = info["boundary_drained_messages"]
+        checks["boundary_image_step"] = load_manifest(ck)["ranks"]["0"][
+            "step_idx"]
+        checks["boundary_cached_envelopes"] = sum(
+            len(load_rank_image(ck, r).mpi_state["cache"])
+            for r in range(n))
+        out = timed("boundary_restart_s", lambda: run_to_end(MPIJob.restart(
+            ck, b_step, b_init, transport=rw["boundary_to"])))
+        checks["boundary_restart_equal"] = (
+            len(out) == len(control) == n and all(
+                np.array_equal(a[k], b[k])
+                for a, b in zip(out, control) for k in ("acc", "sum")))
+
+    error = None
+    ops.reset_launch_counts()                # the path starts here
+    with tempfile.TemporaryDirectory() as d:
+        ck, mesh_root = Path(d) / "world", Path(d) / "mesh"
+        defs = get_api(cfg).param_defs(cfg, 128)
+        built = init_params(defs, torch.Generator(device=DEV).manual_seed(0),
+                            DEV)
+        mgr = CheckpointManager(mesh_root, generation=0)
+        timed("mesh_save_s", lambda: (mgr.save(0, built), mgr.wait()))
+        control = timed("uninterrupted_s", lambda: run_to_end(
+            MPIJob(n, step_fn, init_fn, transport=rw["transport"])))
+        membership = Membership(n)
+        job = MPIJob(n, step_fn, init_fn, transport=rw["transport"],
+                     membership=membership)
+        job.checkpoint_at(rw["ckpt_at"], ck, resume=False)
+        timed("checkpointed_s", lambda: run_to_end(job))
+        drained = job.coord.stats["drained_messages"]
+        man = load_manifest(ck)
+        step_idx = man["ranks"]["0"]["step_idx"]
+        info["image_bytes"] = sum(e["bytes"] for e in man["ranks"].values())
+        if CORRUPT_IMAGE is not None:
+            info["corrupted_chunk"] = _corrupt_app_part(ck, CORRUPT_IMAGE)
+        try:
+            rep = timed("reshape_s", lambda: atomic_reshape(
+                membership, dead=rw["dead"], mgr=mgr, template=defs,
+                mesh=choose_mesh(device=DEV), rules=DEFAULT_RULES,
+                ckpt_dir=ck, step_fn=step_fn, init_fn=init_fn,
+                transport=rw["reshape_to"]))
+            checks["generations"] = [rep.generation, membership.generation,
+                                     mgr.generation,
+                                     rep.job.coord.generation]
+            checks["layers"] = list(rep.layers)
+            locals_ = [t.to_local() for t in tree_leaves(rep.state)]
+            checks["leaves_on_card"] = all(
+                t.device.type == torch.device(DEV).type for t in locals_)
+            checks["leaves_equal"] = len(locals_) == len(
+                tree_leaves(built)) and all(
+                torch.equal(a, w) for a, w in zip(locals_,
+                                                  tree_leaves(built)))
+            del locals_
+            rep.state = None             # one tree on the card at a time
+            rank_map = rep.job.restore_info["rank_map"]
+            checks["rank_map"] = rank_map
+            checks["survivors_equal_images"] = all(
+                params_equal(rep.job.states[new]["params"],
+                             load_rank_image(ck, int(old))
+                             .state_obj()["params"])
+                for old, new in rank_map.items() if new is not None)
+            try:
+                rep.job.coord.report_counters(0, 5, 5, generation=0)
+                checks["stale_rejected"] = False
+            except StaleGenerationError:
+                checks["stale_rejected"] = True
+            out = timed("reshaped_run_s", lambda: run_to_end(rep.job))
+            checks["reshaped_world"] = rep.job.n
+            checks["reshaped_params_equal"] = all(
+                params_equal(out[0]["params"], o["params"]) for o in out)
+            same = timed("same_shape_s", lambda: run_to_end(MPIJob.restart(
+                ck, step_fn, init_fn, transport=rw["same_shape_to"])))
+            checks["same_shape_equal"] = (
+                len(same) == len(control) == n and all(
+                    params_equal(a["params"], b["params"])
+                    and a["loss"] == b["loss"]
+                    for a, b in zip(same, control)))
+            boundary_world(Path(d) / "boundary")
+        except Exception as e:                   # reported in the line
+            error = f"{type(e).__name__}: {e}"
+        del built
+    counts = _launches()                         # ... and ends here
+    free()
+    want = {"generations": [1, 1, 1, 1], "layers": ["mesh", "world"],
+            "leaves_on_card": True, "leaves_equal": True,
+            "survivors_equal_images": True, "stale_rejected": True,
+            "reshaped_world": n - len(rw["dead"]),
+            "reshaped_params_equal": True, "same_shape_equal": True,
+            # each rank's message of step ckpt_at - 1 is in flight
+            "boundary_drained": n, "boundary_image_step": rw["ckpt_at"],
+            "boundary_cached_envelopes": n, "boundary_restart_equal": True}
+    ok = (error is None and all(checks.get(k) == v for k, v in want.items())
+          and step_idx == rw["ckpt_at"] and not any(counts.values()))
+    params_bytes = 4 * (rw["din"] * rw["dh"] + rw["dh"] * rw["dout"])
+    emit("rankworld", ok, card_line, arch=ARCH, dtype="float32",
+         app={k: rw[k] for k in ("din", "dh", "dout", "batch_per_rank")},
+         params_bytes_per_rank=params_bytes, ranks=n, dead=list(rw["dead"]),
+         transports=[rw["transport"], rw["reshape_to"],
+                     rw["same_shape_to"], rw["boundary_to"]],
+         boundary_width=rw["boundary_width"], steps=rw["steps"],
+         image_step=step_idx, drained_messages=drained, checks=checks,
+         error=error, seconds=seconds, launches=counts, **info)
+    return counts
 
 
 def phase_serve_hybrid(card_line):
@@ -3047,6 +3287,7 @@ def _train_sharded_world() -> dict:
     against the one-device step, on every rank (_TRAIN_SHARDED_CHILD)."""
     import pickle
 
+    import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import run_world
     w = TRAIN_SHARDED["world"]
@@ -3054,7 +3295,11 @@ def _train_sharded_world() -> dict:
     args = {k: w[k] for k in ("mesh", "rules", "batch", "seq", "eps",
                               "world_timeout_s")}
     args["cfg"] = pickle.dumps(cfg).hex()
-    args["threads"] = max(1, (os.cpu_count() or 1) // w["ranks"])
+    # no more intra-op threads a rank than this process runs with: the CPU
+    # rehearsal runs with one beside the suite's other workers, where
+    # spinning OpenMP threads of the ranks oversubscribe the cores
+    args["threads"] = max(1, min(torch.get_num_threads(),
+                                 (os.cpu_count() or 1) // w["ranks"]))
     t0 = time.perf_counter()
     outs = run_world(w["ranks"], f"ARGS = {json.dumps(args)!r}\n"
                      + _TRAIN_SHARDED_CHILD, timeout_s=w["world_timeout_s"],
@@ -3972,6 +4217,7 @@ def main() -> int:
         counts = {"serve": run("serve", phase_serve)}
         run("checkpoint", phase_checkpoint)
         counts["elastic"] = run("elastic", phase_elastic)
+        counts["rankworld"] = run("rankworld", phase_rankworld)
         run("serve-parity-hybrid", phase_serve_parity_hybrid)
         counts["serve-hybrid"] = run("serve-hybrid", phase_serve_hybrid)
         run("snapshot-hybrid", phase_snapshot_hybrid)

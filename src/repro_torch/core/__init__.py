@@ -1,3 +1,39 @@
-"""Process-wide support of the PyTorch port: the metrics group and the
-span recorder that the checkpoint manager reports through, the chunk
-service's transport, and the world's membership generation."""
+"""The paper's primary contribution, the port's copy: implementation-agnostic
+MPI checkpoint/restart via proxies (DMTCP plugin model), adapted per
+DESIGN.md.  The package imports no ``torch``: rank applications are numpy.
+
+Public surface:
+    MPI            — passive stub (plugin): full API incl. collectives
+    MPIJob         — runtime: launch, async checkpoint, restart (thread
+                     world; the process world is ROADMAP item 6c-ii)
+    Coordinator    — DMTCP-style coordinator (drain counters, ckpt FSM)
+    transports     — "shm" / "tcp" / "inproc" (three 'MPI implementations')
+
+Beside it live the process-wide metrics group, span recorder and socket
+framing that the checkpoint manager and the chunk service use.
+"""
+import importlib
+
+# name -> module; loaded on first use, so the checkpoint manager's and the
+# chunk service's imports of trace and metrics do not load the rank runtime
+_EXPORTS = {
+    "MPI": "api", "COMM_WORLD": "api",
+    "Coordinator": "coordinator",
+    "ANY_SOURCE": "messages", "ANY_TAG": "messages", "Status": "messages",
+    "MPIJob": "runtime",
+    "TRANSPORTS": "transport", "available_transports": "transport",
+    "make_transport": "transport",
+}
+
+__all__ = ["MPI", "MPIJob", "Coordinator", "COMM_WORLD", "ANY_SOURCE",
+           "ANY_TAG", "Status", "TRANSPORTS", "available_transports",
+           "make_transport"]
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(
+        f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value

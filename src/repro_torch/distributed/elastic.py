@@ -7,10 +7,9 @@ A checkpoint's manifest stores the world that wrote it as
 world, the whole point of the proxy boundary.
 
 ``atomic_reshape`` is the single reshape entry point: the tensor state
-(``elastic_restore`` + CheckpointManager) moves to the new world shape
-under ONE ``Membership.bump``.  The reference also reshapes the rank world
-(``MPIJob.restart``) under that same bump; the port has no copy of that
-runtime yet (ROADMAP.md, Queue 1)."""
+(``elastic_restore`` + CheckpointManager) and the rank world
+(``core.runtime.MPIJob.restart``) move to the new world shape under ONE
+``Membership.bump``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -18,6 +17,7 @@ from pathlib import Path
 from typing import Any, Optional, Sequence, Tuple
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core.runtime import PROCESS_WORLD_TRANSPORTS, MPIJob
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import make_mesh, world_size
 
@@ -65,6 +65,7 @@ class ReshapeReport:
     dead_ranks: Tuple[int, ...]
     state: Any = None            # mesh tensor state (mgr layer), or None
     meta: Optional[dict] = None  # elastic_restore's topology report
+    job: Any = None              # reshaped MPIJob (rank-world layer), or None
     layers: Tuple[str, ...] = field(default=())
 
 
@@ -75,29 +76,50 @@ def atomic_reshape(membership, dead: Sequence[int] = (),
                    template=None, mesh=None,
                    rules: Optional[ShardingRules] = None,
                    state_shardings=None,
-                   ckpt_dir: Optional[str | Path] = None) -> ReshapeReport:
-    """One reshape, one generation bump.
+                   ckpt_dir: Optional[str | Path] = None,
+                   step_fn=None, init_fn=None, transport: str = "shm",
+                   ckpt_store=None, heartbeat_timeout: float = 5.0,
+                   coord_timeout: float = 60.0) -> ReshapeReport:
+    """One reshape, one generation bump, every layer (DESIGN.md §8).
 
     Bumps `membership` past `dead` to `world_size` exactly once, then
-    restores the tensor layer onto the NEW epoch when `mgr` is given (+
-    `template`/`mesh`/`rules` as ``elastic_restore`` takes them): the
-    manager's stamped generation is set to the bumped epoch before the
-    restore, so the next manifest it writes records that generation.
-    The rank-world layer (`ckpt_dir`, the reference's ``MPIJob.restart``)
-    is refused before anything is bumped.  Returns a ``ReshapeReport``."""
-    if ckpt_dir is not None:
+    restores whichever layers the caller drives onto the NEW epoch:
+
+      * tensor layer — pass `mgr` (+ `template`/`mesh`/`rules` as
+        ``elastic_restore`` takes them): the manager's stamped generation
+        is set to the bumped epoch before the restore, so the next
+        manifest it writes records the same generation the rank world
+        rejects stale messages against;
+      * rank world — pass `ckpt_dir` (+ `step_fn`/`init_fn`/...):
+        ``MPIJob.restart`` reshapes the world with THIS membership, whose
+        bump already happened here — the job performs none of its own.
+        A rank checkpoint written by either package restarts here.
+
+    Either layer alone is fine; passing both is the lockstep case the
+    name promises.  A process-world `transport` ("proc", "shmring")
+    raises ``NotImplementedError`` before anything is bumped.  Returns a
+    ``ReshapeReport``."""
+    if ckpt_dir is not None and transport in PROCESS_WORLD_TRANSPORTS:
         raise NotImplementedError(
-            "the rank-world layer of atomic_reshape (MPIJob.restart) waits "
-            "for the port's copy of the core runtime (ROADMAP.md, Queue 1, "
-            "item 6c)")
+            f"transport={transport!r}: the process world is ROADMAP.md, "
+            f"Queue 1, item 6c-ii")
     dead = tuple(sorted({int(r) for r in dead}))
     gen = membership.bump(dead, world_size=world_size)
     report = ReshapeReport(generation=gen,
                            world_size=membership.world_size,
                            dead_ranks=dead)
+    layers = []
     if mgr is not None:
         mgr.generation = gen
         report.state, report.meta = elastic_restore(
             mgr, template, mesh, rules, state_shardings)
-        report.layers = ("mesh",)
+        layers.append("mesh")
+    if ckpt_dir is not None:
+        report.job = MPIJob.restart(
+            ckpt_dir, step_fn, init_fn, transport=transport,
+            world_size=membership.world_size, dead_ranks=dead,
+            membership=membership, heartbeat_timeout=heartbeat_timeout,
+            coord_timeout=coord_timeout, ckpt_store=ckpt_store)
+        layers.append("world")
+    report.layers = tuple(layers)
     return report

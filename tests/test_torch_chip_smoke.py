@@ -991,3 +991,61 @@ def test_chip_smoke_dryrun_phase_fails_on_unequal_costs(smoke, monkeypatch):
         "probe": {"rc": 0, "stdout": probe, "stderr": "", "record": None}})
     with pytest.raises(smoke.PhaseFailed, match="dryrun"):
         smoke.phase_dryrun("cpu rehearsal, 0 W")
+
+
+_RANKWORLD_SMOKE = dict(din=16, dh=32, dout=4, batch_per_rank=8,
+                        boundary_width=64)
+
+
+def test_chip_smoke_rankworld_phase_on_cpu(smoke, capsys, monkeypatch):
+    """The rankworld phase at smoke widths: the smoke tree saved and
+    restored onto this process's 1-rank mesh and a 4-rank world over shm
+    reshaped to 3 ranks over tcp under one bump; a same-shape restart onto
+    inproc bit-equal to an uninterrupted run; the boundary world's
+    checkpoint drains one message a rank and its restart onto tcp is
+    bit-equal to an uninterrupted run.  No kernel runs."""
+    monkeypatch.setattr(smoke, "RANKWORLD",
+                        dict(smoke.RANKWORLD, **_RANKWORLD_SMOKE))
+    counts = smoke.phase_rankworld("cpu rehearsal, 0 W")
+    assert counts == {"flash_attention_fwd": 0, "rglru_scan": 0,
+                      "quantize_int8": 0, "dequantize_int8": 0}
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "rankworld"'))
+    assert line["ok"] and line["error"] is None
+    assert line["image_step"] == 6 and line["ranks"] == 4
+    assert line["transports"] == ["shm", "tcp", "inproc", "tcp"]
+    checks = line["checks"]
+    assert checks["generations"] == [1, 1, 1, 1]
+    assert checks["layers"] == ["mesh", "world"]
+    assert checks["rank_map"] == {"0": 0, "1": 1, "2": 2, "3": None}
+    assert checks["reshaped_world"] == 3
+    assert all(checks[k] for k in (
+        "leaves_on_card", "leaves_equal", "survivors_equal_images",
+        "stale_rejected", "reshaped_params_equal", "same_shape_equal",
+        "boundary_restart_equal"))
+    # envelopes really drained into the images: one in flight a rank
+    assert checks["boundary_drained"] == 4
+    assert checks["boundary_cached_envelopes"] == 4
+    assert checks["boundary_image_step"] == 6
+    assert line["params_bytes_per_rank"] == 4 * (16 * 32 + 32 * 4)
+    assert set(line["seconds"]) == {
+        "mesh_save_s", "uninterrupted_s", "checkpointed_s", "reshape_s",
+        "reshaped_run_s", "same_shape_s", "boundary_uninterrupted_s",
+        "boundary_checkpointed_s", "boundary_restart_s"}
+    assert line["boundary_drained_messages"] == 4
+    assert line["drained_messages"] == 0   # the DP ring ends in its step
+
+
+def test_chip_smoke_rankworld_phase_fails_on_a_corrupted_image(
+        smoke, capsys, monkeypatch):
+    """One byte of rank 1's app part changed on disk after the checkpoint:
+    the restart's digest check refuses the image, and the phase fails."""
+    monkeypatch.setattr(smoke, "RANKWORLD",
+                        dict(smoke.RANKWORLD, **_RANKWORLD_SMOKE))
+    monkeypatch.setattr(smoke, "CORRUPT_IMAGE", 1)
+    with pytest.raises(smoke.PhaseFailed, match="rankworld"):
+        smoke.phase_rankworld("cpu rehearsal, 0 W")
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "rankworld"'))
+    assert not line["ok"] and line["corrupted_chunk"].endswith(".bin")
+    assert "digest mismatch" in line["error"]

@@ -388,32 +388,48 @@ def test_restore_refuses_a_path_in_place_of_shardings(tmp_path):
 
 def test_atomic_reshape_single_bump_mesh_layer(tmp_path):
     """Twin of test_live_migrate.py::
-    test_atomic_reshape_single_bump_both_layers for the mesh layer: one
-    bump, the manager stamped with it; the rank-world layer refuses before
-    anything is bumped."""
+    test_atomic_reshape_single_bump_both_layers: first both layers, the
+    mesh manager and the port's rank world (``MPIJob.restart``) under one
+    bump; then the mesh layer alone, one more bump, the manager stamped
+    with it."""
+    from repro_torch.core.runtime import MPIJob
+    from repro_torch.distributed.proxy_grad import make_dp_app
     membership = Membership(2)
+    init_fn, step_fn = make_dp_app()
+    job = MPIJob(2, step_fn, init_fn, transport="shm", membership=membership)
+    job.checkpoint_at(2, tmp_path / "ck", resume=False)
+    job.run(4, timeout=60)
+    job.stop()
     mgr = CheckpointManager(tmp_path / "mesh", generation=0)
     mgr.save(7, {"w": torch.arange(8.0)})
     mgr.wait()
     mesh = tmesh.make_mesh((1,), ("data",), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        elastic.atomic_reshape(membership, dead=(1,), mgr=mgr,
-                               template={"w": 0}, mesh=mesh,
-                               rules=DEFAULT_RULES, ckpt_dir=tmp_path / "ck")
-    assert membership.generation == 0 and mgr.generation == 0
-    rep = elastic.atomic_reshape(membership, dead=(1,), mgr=mgr,
+    both = elastic.atomic_reshape(membership, dead=(1,), mgr=mgr,
+                                  template={"w": 0}, mesh=mesh,
+                                  rules=DEFAULT_RULES,
+                                  ckpt_dir=tmp_path / "ck", step_fn=step_fn,
+                                  init_fn=init_fn, transport="tcp")
+    assert both.layers == ("mesh", "world")
+    assert both.generation == 1 == membership.generation == mgr.generation \
+        == both.job.coord.generation
+    assert both.job.n == both.world_size == 1
+    out = both.job.run(4, timeout=60)
+    both.job.stop()
+    assert np.isfinite(out[0]["loss"])
+    assert torch.equal(both.state["w"].to_local(), torch.arange(8.0))
+    rep = elastic.atomic_reshape(membership, dead=(), mgr=mgr,
                                  template={"w": 0}, mesh=mesh,
                                  rules=DEFAULT_RULES)
-    assert rep.generation == 1 == membership.generation == mgr.generation
-    assert rep.layers == ("mesh",)
+    assert rep.generation == 2 == membership.generation == mgr.generation
+    assert rep.layers == ("mesh",) and rep.job is None
     assert rep.world_size == membership.world_size == 1
-    assert rep.dead_ranks == (1,)
+    assert rep.dead_ranks == ()
     assert torch.equal(rep.state["w"].to_local(), torch.arange(8.0))
     assert rep.meta["restored_onto"]["devices"] == 1
     mgr.save(8, {"w": torch.arange(8.0)})
     mgr.wait()
-    assert _manifest(tmp_path / "mesh", 8)["meta"]["generation"] == 1
-    assert membership.history == [(0, 2, ()), (1, 1, (1,))]
+    assert _manifest(tmp_path / "mesh", 8)["meta"]["generation"] == 2
+    assert membership.history == [(0, 2, ()), (1, 1, (1,)), (2, 1, ())]
 
 
 def test_membership_generation_rules():

@@ -42,3 +42,21 @@ def test_port_sources_import_no_jax_and_no_reference():
     hits = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
             for f in files}
     assert not {f: h for f, h in hits.items() if h}
+
+
+_NO_TORCH_PROBE = r"""
+import sys
+import repro_torch.core.runtime, repro_torch.distributed.proxy_grad
+import repro_torch.distributed.faults
+print("TORCH", sorted(n for n in sys.modules if n.split(".")[0] == "torch"))
+"""
+
+
+def test_the_rank_world_imports_no_torch():
+    """The process world forks ranks from the rank-world modules before
+    CUDA starts, so importing them loads no torch."""
+    proc = subprocess.run([sys.executable, "-c", _NO_TORCH_PROBE], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "TORCH []", proc.stdout
