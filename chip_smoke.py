@@ -83,6 +83,23 @@ one JSON line each; any failure exits non-zero:
                  restarted onto tcp bit-equal to its uninterrupted run;
                  the seconds of each stage and the drained messages.  No
                  kernel runs
+  procworld      the process world: the same MLP with every rank a forked
+                 OS process behind a socket proxy endpoint in this (CUDA)
+                 process.  A: smollm-135m's fp32 tree built on the card and
+                 saved; 4 ranks over shmring (tensors >= 256 KiB cross
+                 through the shared-memory ring) checkpointed at step 6 of
+                 10; one atomic_reshape, rank 3 dead, onto proc, the tree
+                 restored onto the card's mesh: generation 1 everywhere,
+                 leaves and survivors bit-equal, the reshaped run bit-equal
+                 to a thread-world restart of the same images over shm.
+                 B: FaultTolerantDriver, 4 ranks over proc, 12 steps,
+                 ckpt_every 5, rank 2 SIGKILLs itself at step 8: dead:[2],
+                 restart:at_00000005 onto shmring, done; generation 1,
+                 world 3, bit-equal to a thread-world restart.  C: python
+                 -m repro_torch.launch.procrun with a kill in a fresh
+                 interpreter: world=3 generation=1.  /dev/shm, the ring as
+                 created, ring_bytes, pids, exit codes, each stage's
+                 seconds, kill -> dead and restart -> done.  No kernel runs
   serve-parity-hybrid
                  full-width recurrentgemma-9b (seeded random weights), fp32,
                  B=1, prompt 2560 (past the 2048 window): kernels vs plain
@@ -255,6 +272,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -380,6 +398,22 @@ RANKWORLD = dict(ranks=4, dead=(3,), din=1024, dh=4096, dout=1024,
                  reshape_to="tcp", same_shape_to="inproc",
                  boundary_width=1 << 20, boundary_to="tcp", timeout_s=300)
 CORRUPT_IMAGE = None         # a rank whose app part is corrupted on disk
+# the procworld phase: RANKWORLD's data-parallel MLP with every rank a forked
+# OS process behind a socket proxy endpoint.  A: ranks over `transport`
+# (the shared-memory tensor ring) checkpointed at ckpt_at of steps, one
+# atomic_reshape past `dead` onto reshape_to, held against a thread-world
+# restart of the same images over thread_to.  B: FaultTolerantDriver over
+# driver_transport, kill_rank SIGKILLing itself at kill_step of generation
+# 0, restarted onto after_failure, held against a thread-world restart of
+# the checkpoint it resumed from.  C: the procrun CLI in a fresh interpreter
+# at its own widths, cli_args
+PROCWORLD = dict(ranks=4, dead=(3,), steps=10, ckpt_at=6, transport="shmring",
+                 reshape_to="proc", thread_to="shm", driver_steps=12,
+                 ckpt_every=5, kill_rank=2, kill_step=8,
+                 driver_transport="proc", after_failure="shmring",
+                 cli_args=("--ranks", "4", "--steps", "20", "--kill-rank",
+                           "2", "--kill-step", "8"),
+                 timeout_s=300)
 REMOTE_LEGS = {"local": 0, "remote": 1, "sharded": 3}
 # the sharded phase: its CPU worlds (ranks, mesh) and their model, ARCH's
 # widths at a depth cut (the full-depth random stack is chaotic), fp32;
@@ -1735,6 +1769,276 @@ def phase_rankworld(card_line):
          boundary_width=rw["boundary_width"], steps=rw["steps"],
          image_step=step_idx, drained_messages=drained, checks=checks,
          error=error, seconds=seconds, launches=counts, **info)
+    return counts
+
+# ---------------------------------------------------------------- procworld
+
+def phase_procworld(card_line):
+    """The process world beside the tensor layer: RANKWORLD's
+    data-parallel MLP with every rank a forked OS process behind a socket
+    proxy endpoint in this process, which holds a CUDA context.
+    A: smollm-135m's fp32 tree built on the card and saved (and waited on:
+    nothing is written while the ranks fork); ranks over PROCWORLD's
+    transport, whose tensors cross through the shared-memory ring,
+    checkpointed at ckpt_at with resume=False; one atomic_reshape of both
+    layers onto reshape_to, run to the end and held against a thread-world
+    restart of the same images, bit for bit.  B: FaultTolerantDriver with
+    kill_rank SIGKILLing itself at kill_step: the events, the reshaped
+    world and its params against a thread-world restart of the checkpoint
+    the driver resumed from.  C: the procrun CLI in a fresh interpreter.
+    No kernel runs: the counts are set to 0 before and read after."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.core import dataplane, procworld
+    from repro_torch.core.ckpt_protocol import load_manifest, load_rank_image
+    from repro_torch.core.coordinator import Membership
+    from repro_torch.core.runtime import MPIJob
+    from repro_torch.distributed.elastic import atomic_reshape, choose_mesh
+    from repro_torch.distributed.faults import FaultTolerantDriver
+    from repro_torch.distributed.proxy_grad import make_dp_app
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.models.registry import get_api
+    pw, rw = PROCWORLD, RANKWORLD
+    n, dead = pw["ranks"], tuple(pw["dead"])
+    free_and_reset_peak()
+    cfg = get_arch(ARCH)
+    app = {k: rw[k] for k in ("din", "dh", "dout", "batch_per_rank")}
+    init_fn, step_fn = make_dp_app(**app)
+    # the ring allreduce splits its largest leaf, w1 (din x dh fp32), into
+    # one chunk a rank: the payload that rides the ring if a slot holds it
+    chunk_bytes = 4 * -(-rw["din"] * rw["dh"] // n)
+    seconds, checks, pids, info = {}, {}, {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    def run_to_end(job, steps, on_done=None):
+        try:
+            out = job.run(steps, timeout=pw["timeout_s"])
+            if on_done is not None:
+                on_done(job)
+            return out
+        finally:
+            job.stop()
+
+    def params_equal(a, b):
+        return set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+    def same_runs(a, b):
+        return len(a) == len(b) and all(
+            params_equal(x["params"], y["params"]) and x["loss"] == y["loss"]
+            for x, y in zip(a, b))
+
+    def thread_restart(ck, gone, steps):
+        """The same images restarted as thread ranks, reshaped alike."""
+        ms = Membership(n)
+        ms.bump(dead=list(gone))
+        return run_to_end(MPIJob.restart(
+            ck, step_fn, init_fn, transport=pw["thread_to"],
+            world_size=n - len(gone), dead_ranks=list(gone), membership=ms),
+            steps)
+
+    def processes(job):
+        """rank -> pid of every process the job forked, and exit codes."""
+        world = job._proc
+        return ({str(r): p.pid for r, p in sorted(world._procs.items())},
+                {str(r): c for r, c in sorted(world.exit_codes.items())})
+
+    def telemetry(job):
+        info["ring_bytes"] = int(job.stats()["telemetry"]["total"].get(
+            "ring_bytes", 0))
+
+    error = None
+    ops.reset_launch_counts()                # the path starts here
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        ck = d / "world"
+        defs = get_api(cfg).param_defs(cfg, 128)
+        built = init_params(defs, torch.Generator(device=DEV).manual_seed(0),
+                            DEV)
+        mgr = CheckpointManager(d / "mesh", generation=0)
+        timed("save_s", lambda: (mgr.save(0, built), mgr.wait()))
+        info["shm_free_bytes"] = dataplane._shm_free_bytes()
+        try:
+            # A: the checkpointed run over the ring, one reshape onto proc
+            membership = Membership(n)
+            job = MPIJob(n, step_fn, init_fn, transport=pw["transport"],
+                         membership=membership)
+            ring = job._proc.ring
+            info["ring"] = (None if ring is None else
+                            {"slots": ring.slots,
+                             "slot_bytes": ring.slot_bytes})
+            ring_expected = (ring is not None and chunk_bytes
+                             >= procworld.RING_PAYLOAD_MIN
+                             and chunk_bytes <= ring.slot_bytes)
+            if not ring_expected:
+                info["ring_note"] = (
+                    f"a {chunk_bytes} B allreduce chunk does not ride the "
+                    f"ring (ring {info['ring']}, payloads from "
+                    f"{procworld.RING_PAYLOAD_MIN} B): it ships inline")
+            job.checkpoint_at(pw["ckpt_at"], ck, resume=False)
+            timed("checkpointed_s",
+                  lambda: run_to_end(job, pw["steps"], telemetry))
+            pids["checkpointed"], codes = processes(job)
+            man = load_manifest(ck)
+            checks["image_step"] = man["ranks"]["0"]["step_idx"]
+            checks["image_transport"] = man["meta"]["transport"]
+            checks["pids_distinct"] = (
+                len(set(pids["checkpointed"].values())) == n
+                and os.getpid() not in pids["checkpointed"].values())
+            checks["exit_codes_zero"] = set(codes.values()) == {0}
+            checks["ring_used"] = (info["ring_bytes"] > 0) == ring_expected
+            rep = timed("reshape_s", lambda: atomic_reshape(
+                membership, dead=dead, mgr=mgr, template=defs,
+                mesh=choose_mesh(device=DEV), rules=DEFAULT_RULES,
+                ckpt_dir=ck, step_fn=step_fn, init_fn=init_fn,
+                transport=pw["reshape_to"]))
+            checks["generations"] = [rep.generation, membership.generation,
+                                     mgr.generation,
+                                     rep.job.coord.generation]
+            locals_ = [t.to_local() for t in tree_leaves(rep.state)]
+            checks["leaves_equal"] = len(locals_) == len(
+                tree_leaves(built)) and all(
+                a.device.type == torch.device(DEV).type and torch.equal(a, w)
+                for a, w in zip(locals_, tree_leaves(built)))
+            del locals_
+            rep.state = None             # one tree on the card at a time
+            rank_map = rep.job.restore_info["rank_map"]
+            checks["survivors_equal_images"] = all(
+                params_equal(rep.job.states[new]["params"],
+                             load_rank_image(ck, int(old))
+                             .state_obj()["params"])
+                for old, new in rank_map.items() if new is not None)
+            out = timed("reshaped_run_s",
+                        lambda: run_to_end(rep.job, pw["steps"]))
+            pids["reshaped"], codes = processes(rep.job)
+            checks["reshaped_world"] = len(out)
+            checks["reshaped_exit_codes_zero"] = set(codes.values()) == {0}
+            thread = timed("thread_restart_s",
+                           lambda: thread_restart(ck, dead, pw["steps"]))
+            checks["reshaped_equal_thread"] = same_runs(out, thread)
+
+            # B: the driver, a real SIGKILL, the restart onto the ring
+            kill_file = d / "killed_at"
+            kill_rank, kill_step = pw["kill_rank"], pw["kill_step"]
+
+            def killing_step(mpi, st, k):
+                if (mpi.generation == 0 and k == kill_step
+                        and mpi.rank == kill_rank):
+                    kill_file.write_text(repr(time.time()))
+                    os.kill(os.getpid(), signal.SIGKILL)
+                return step_fn(mpi, st, k)
+
+            jobs, stamps = [], []
+
+            def fresh(ws, ms):
+                jobs.append(MPIJob(
+                    ws or n, killing_step, init_fn,
+                    transport=pw["driver_transport"], heartbeat_timeout=5.0,
+                    membership=ms, coord_timeout=30.0))
+                return jobs[-1]
+
+            def restarted(ckpt, tr, ws, gone, ms):
+                jobs.append(MPIJob.restart(
+                    ckpt, killing_step, init_fn, transport=tr, world_size=ws,
+                    dead_ranks=gone, membership=ms, heartbeat_timeout=5.0,
+                    coord_timeout=30.0))
+                return jobs[-1]
+
+            class StampedDriver(FaultTolerantDriver):
+                def _event(self, kind, text, **kw):
+                    ev = super()._event(kind, text, **kw)
+                    stamps.append((time.time(), str(ev)))
+                    return ev
+
+            driver = StampedDriver(job_factory=fresh,
+                                   restart_factory=restarted,
+                                   ckpt_root=d / "driver",
+                                   ckpt_every=pw["ckpt_every"])
+            got = timed("driver_s", lambda: driver.run(
+                pw["driver_steps"], transport_after_failure=pw[
+                    "after_failure"], timeout=pw["timeout_s"]))
+            events = [str(e) for e in driver.events]
+            info["events"] = events
+            pids["driver"] = [processes(j)[0] for j in jobs]
+            info["driver_exit_codes"] = [processes(j)[1] for j in jobs]
+            every = pw["ckpt_every"]
+            resumed = f"at_{kill_step // every * every:08d}"
+            checks["dead_event"] = any(
+                e.startswith(f"dead:[{kill_rank}]") for e in events)
+            checks["restart_event"] = any(
+                e.startswith(f"restart:{resumed}") for e in events)
+            checks["done_last"] = bool(events) and events[-1] == "done"
+            checks["sigkilled"] = info["driver_exit_codes"][0].get(
+                str(kill_rank)) == -signal.SIGKILL
+            checks["driver_generation"] = driver.membership.generation
+            checks["driver_world"] = len(got)
+            checks["driver_params_equal"] = all(
+                params_equal(got[0]["params"], o["params"]) for o in got)
+            if (d / "driver" / resumed).is_dir():
+                thread = timed("driver_thread_restart_s",
+                               lambda: thread_restart(d / "driver" / resumed,
+                                                      (kill_rank,),
+                                                      pw["driver_steps"]))
+                checks["driver_equal_thread"] = same_runs(got, thread)
+            at = {e.split(":")[0]: t for t, e in stamps}
+            if kill_file.exists() and "dead" in at:
+                seconds["kill_to_dead_s"] = at["dead"] - float(
+                    kill_file.read_text())
+            if "restart" in at and "done" in at:
+                seconds["restart_to_done_s"] = at["done"] - at["restart"]
+
+            # C: the CLI in a fresh interpreter, no CUDA
+            cli = timed("cli_s", lambda: subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.procrun",
+                 *pw["cli_args"], "--ckpt-root", str(d / "cli")],
+                cwd=ROOT, capture_output=True, text=True,
+                timeout=pw["timeout_s"],
+                env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                     "PYTHONPATH": str(ROOT / "src")}))
+            done = re.search(r"\[procrun\] done: world=(\d+) "
+                             r"generation=(\d+).*", cli.stdout)
+            info["cli_done"] = done[0] if done else cli.stdout[-2000:]
+            checks["cli_rc"] = cli.returncode
+            checks["cli_world_generation"] = (
+                [int(done[1]), int(done[2])] if done else None)
+            if cli.returncode:
+                info["cli_stderr"] = cli.stderr[-2000:]
+        except Exception as e:                   # reported in the line
+            error = f"{type(e).__name__}: {e}"
+        del built
+    counts = _launches()                         # ... and ends here
+    free()
+    want = {"image_step": pw["ckpt_at"], "image_transport": pw["transport"],
+            "pids_distinct": True, "exit_codes_zero": True,
+            "ring_used": True, "generations": [1, 1, 1, 1],
+            "leaves_equal": True, "survivors_equal_images": True,
+            "reshaped_world": n - len(dead),
+            "reshaped_exit_codes_zero": True, "reshaped_equal_thread": True,
+            "dead_event": True, "restart_event": True, "done_last": True,
+            "sigkilled": True, "driver_generation": 1,
+            "driver_world": n - 1, "driver_params_equal": True,
+            "driver_equal_thread": True, "cli_rc": 0,
+            "cli_world_generation": [3, 1]}
+    ok = (error is None and all(checks.get(k) == v for k, v in want.items())
+          and not any(counts.values()))
+    emit("procworld", ok, card_line, arch=ARCH, dtype="float32", app=app,
+         chunk_bytes=chunk_bytes, ranks=n, dead=list(dead),
+         transports=[pw["transport"], pw["reshape_to"], pw["thread_to"],
+                     pw["driver_transport"], pw["after_failure"]],
+         steps=pw["steps"], driver_steps=pw["driver_steps"],
+         kill=[pw["kill_rank"], pw["kill_step"]],
+         cli=" ".join(pw["cli_args"]), checks=checks, error=error,
+         seconds=seconds, pids=pids, launches=counts, **info)
     return counts
 
 
@@ -4218,6 +4522,7 @@ def main() -> int:
         run("checkpoint", phase_checkpoint)
         counts["elastic"] = run("elastic", phase_elastic)
         counts["rankworld"] = run("rankworld", phase_rankworld)
+        run("procworld", phase_procworld)
         run("serve-parity-hybrid", phase_serve_parity_hybrid)
         counts["serve-hybrid"] = run("serve-hybrid", phase_serve_hybrid)
         run("snapshot-hybrid", phase_snapshot_hybrid)

@@ -4,10 +4,13 @@ DESIGN.md.  The package imports no ``torch``: rank applications are numpy.
 
 Public surface:
     MPI            — passive stub (plugin): full API incl. collectives
-    MPIJob         — runtime: launch, async checkpoint, restart (thread
-                     world; the process world is ROADMAP item 6c-ii)
+    MPIJob         — runtime: launch, async checkpoint, restart
     Coordinator    — DMTCP-style coordinator (drain counters, ckpt FSM)
     transports     — "shm" / "tcp" / "inproc" (three 'MPI implementations')
+                     plus "proc": every rank a REAL OS process behind a
+                     socket proxy endpoint (core/procworld.py, DESIGN §10),
+                     and "shmring": the same with tensors crossing through
+                     a shared-memory ring (core/dataplane.py)
 
 Beside it live the process-wide metrics group, span recorder and socket
 framing that the checkpoint manager and the chunk service use.

@@ -17,13 +17,13 @@ world shape: ``MPIJob.restart(ck, step_fn, init_fn, world_size=K,
 dead_ranks=(r,))`` shrinks, grows, or replaces members, remapping every
 world-rank reference in the images through the old→new map (DESIGN.md §8).
 
-The reference runs two execution substrates in this class: the THREAD
-world (ranks are threads, proxies are MPIProxy threads), which this copy
-runs, and the PROCESS world (``transport="proc"`` or ``"shmring"``: ranks
-are forked OS processes behind per-rank socket proxy endpoints), which
-comes with ROADMAP item 6c-ii; until then those transports raise
-``NotImplementedError`` before anything starts.  This module imports no
-``torch``, so the process world can fork ranks before CUDA starts."""
+Two execution substrates share this class: the THREAD world (ranks are
+threads, proxies are MPIProxy threads) and the PROCESS world
+(``transport="proc"``: ranks are forked OS processes behind per-rank
+socket proxy endpoints — core/procworld.py, DESIGN.md §10).  Checkpoints
+restore across substrates in both directions, and across the two
+packages.  This module imports no ``torch``: the process world forks rank
+children from it, and a forked child must stay off torch."""
 from __future__ import annotations
 
 import os
@@ -42,7 +42,7 @@ from repro_torch.core.api import MPI, remap_mpi_snapshot
 from repro_torch.core.ckpt_protocol import (RankImage, commit_manifest,
                                       load_manifest, load_rank_image,
                                       save_rank_image)
-from repro_torch.core.dataplane import ContributionLedger
+from repro_torch.core.dataplane import ContributionLedger, RingRef
 from repro_torch.core import migrate as migration
 from repro_torch.core.coordinator import (Coordinator, Membership,
                                           PHASE_DRAIN, PHASE_EXIT,
@@ -50,10 +50,8 @@ from repro_torch.core.coordinator import (Coordinator, Membership,
                                           PHASE_RESUME, PHASE_RUN)
 from repro_torch.core.proxy import MPIProxy, ProxyChannel
 from repro_torch.core.transport import make_transport
+from repro_torch.core.tunables import LEDGER_ENABLED
 from repro_torch.core.virtualization import make_rank_map
-
-#: transports of the reference's process world (ROADMAP item 6c-ii)
-PROCESS_WORLD_TRANSPORTS = ("proc", "shmring")
 
 
 class _ThreadRankHost(rankloop.RankHost):
@@ -155,11 +153,6 @@ class MPIJob:
                  coord_timeout: float = 60.0,
                  ckpt_store: Optional[str | Path | StoreSpec
                                       | ChunkStoreBackend] = None):
-        if transport in PROCESS_WORLD_TRANSPORTS:
-            raise NotImplementedError(
-                f"transport={transport!r} runs ranks as OS processes (the "
-                f"process world), which the port does not have yet: "
-                f"ROADMAP.md, Queue 1, item 6c-ii")
         self.n = n_ranks
         self.step_fn = step_fn
         self.init_fn = init_fn
@@ -178,14 +171,30 @@ class MPIJob:
                                  timeout=coord_timeout)
         self.transport = make_transport(transport)
         self.transport.start(n_ranks)
-        self.channels: List[ProxyChannel] = [ProxyChannel()
-                                             for _ in range(n_ranks)]
-        self.proxies = [MPIProxy(r, self.transport, self.channels[r])
-                        for r in range(n_ranks)]
-        for p in self.proxies:
-            p.start()
-        self.mpis = [MPI(r, n_ranks, self.channels[r], self.coord)
-                     for r in range(n_ranks)]
+        if getattr(self.transport, "proc_world", False):
+            # PROCESS world (DESIGN.md §10): ranks are real OS processes
+            # forked at run() time; their proxies are per-rank endpoint
+            # threads in THIS process (core/procworld.py).  Keyed off the
+            # transport's `proc_world` attribute so ring-enabled variants
+            # ("shmring") inherit the whole launch path.  No in-process
+            # plugin objects exist — snapshots restore in the children.
+            from repro_torch.core.procworld import ProcWorld
+            self.channels: List[ProxyChannel] = []
+            self.proxies: List[MPIProxy] = []
+            self.mpis: List[MPI] = []
+            self._proc = ProcWorld(self)
+        else:
+            self._proc = None
+            self.channels = [ProxyChannel() for _ in range(n_ranks)]
+            self.proxies = [MPIProxy(r, self.transport, self.channels[r])
+                            for r in range(n_ranks)]
+            for p in self.proxies:
+                p.start()
+            self.mpis = [MPI(r, n_ranks, self.channels[r], self.coord)
+                         for r in range(n_ranks)]
+        #: proc mode: rank -> remapped MPI snapshot, applied by the forked
+        #: child (admin replay runs against ITS endpoint, not in-process)
+        self._restore_snaps: Dict[int, dict] = {}
         self.states: List[Any] = [None] * n_ranks
         self.start_steps = [0] * n_ranks
         self.results: List[Any] = [None] * n_ranks
@@ -223,7 +232,8 @@ class MPIJob:
         #: collective here; the parent replays a dead rank's step from it.
         #: In the process world children ship contributions over their
         #: endpoint sockets into this same parent-side instance.
-        self.ledger = ContributionLedger(n_ranks)
+        self.ledger = (ContributionLedger(n_ranks)
+                       if LEDGER_ENABLED else None)
         #: per-rank FSM traces from the unified rank loop (parity suite)
         self._fsm_traces: Dict[int, list] = {}
         # blocked-but-alive ranks keep the heartbeat beating (a rank parked
@@ -312,6 +322,8 @@ class MPIJob:
         for r in range(self.n):
             self.heartbeat.reset(r)
         self._n_steps = n_steps
+        if self._proc is not None:
+            return self._proc.run(n_steps, timeout)
         self._threads = [
             threading.Thread(target=self._rank_main, args=(r, n_steps),
                              daemon=True, name=f"rank-{r}")
@@ -343,7 +355,8 @@ class MPIJob:
         str/Path/StoreSpec/backend handling lives in exactly one place
         (``chunkstore.open_store``) and the job memoizes ONE backend for
         its lifetime: a remote store keeps its connections + presence
-        knowledge across checkpoint boundaries.  None when the job
+        knowledge across checkpoint boundaries (mirrors
+        procworld._child_store on the child side).  None when the job
         has no shared store (self-contained checkpoint dirs)."""
         if self.ckpt_store is None:
             return None
@@ -360,7 +373,8 @@ class MPIJob:
 
     def checkpoint(self, ckpt_dir: str | Path, resume: bool = True) -> None:
         """Asynchronous checkpoint request (any thread, any time)."""
-        over = (self.coord.all_finished()
+        over = (self._proc.finished() if self._proc is not None
+                else self.coord.all_finished()
                 and all(not t.is_alive() for t in self._threads))
         if over:
             raise RuntimeError("job already finished; nothing to checkpoint")
@@ -429,7 +443,8 @@ class MPIJob:
         bad = [r for r in ranks if not 0 <= r < self.n]
         if bad:
             raise ValueError(f"migrate ranks {bad} outside world of {self.n}")
-        over = (self.coord.all_finished()
+        over = (self._proc.finished() if self._proc is not None
+                else self.coord.all_finished()
                 and all(not t.is_alive() for t in self._threads))
         if over:
             raise RuntimeError("job already finished; nothing to migrate")
@@ -455,9 +470,12 @@ class MPIJob:
         staged: set = set()       # every chunk any pre-copy round shipped
         # thread world: materialise the replacements' states at the
         # destination DURING the rounds, so the pause patches only the
-        # final delta
-        staging: Dict[int, migration.StagedState] = {
-            r: migration.StagedState(dest or store) for r in ranks}
+        # final delta (process-world children restore in the forked
+        # replacement instead — the parent can't hand objects across)
+        staging: Optional[Dict[int, migration.StagedState]] = None
+        if self._proc is None:
+            staging = {r: migration.StagedState(dest or store)
+                       for r in ranks}
         prev_dirty: Optional[int] = None
         converged = False
         mig_span = _trace.begin("migrate", cat="coord",
@@ -560,9 +578,15 @@ class MPIJob:
         store (fetch-on-miss — the "new host" path), then hand the rank
         to a thread that hot-joins the live generation.  MPI state stays
         behind the proxy (the paper's argument): the plugin-side objects
-        survive the move untouched in the thread world.  With `staging`
+        survive the move untouched in the thread world, and the process
+        world replays them into the replacement child.  With `staging`
         (migrate()'s per-rank StagedState) the pre-copied leaves are
         already live objects; only the final delta is fetched here."""
+        if self._proc is not None:
+            spec = getattr(img_store, "spec", None)
+            self._proc.spawn_replacements(ranks, self._n_steps or 0,
+                                          str(spec) if spec else None)
+            return
         man = load_manifest(self._ckpt_dir)
         for r in ranks:
             ent = man["ranks"][str(r)]
@@ -643,10 +667,17 @@ class MPIJob:
             if st is not None:
                 break
             # drain the dead ranks' transport inboxes: envelopes addressed
-            # to a corpse must not linger as phantom in-flight traffic
+            # to a corpse must not linger as phantom in-flight traffic —
+            # and in a shmring world their RingRef descriptors must be
+            # read out, or the dead rank's unclaimed slots would trip the
+            # ring.in_flight()==0 invariant at the next checkpoint
+            ring = self._proc.ring if self._proc is not None else None
             for r in dead:
                 try:
-                    self.transport.poll_all(r)
+                    for env in self.transport.poll_all(r):
+                        if ring is not None and isinstance(
+                                getattr(env, "payload", None), RingRef):
+                            ring.read(env.payload)
                 except Exception:
                     pass
             if time.time() > deadline:
@@ -659,8 +690,12 @@ class MPIJob:
             raise _recovery.RecoveryFailed(
                 st.get("error") or "recovery cancelled")
         # parent bookkeeping: the dead rank is no longer a member — stop
-        # monitoring it, forget its error
+        # monitoring it, forget its error, and (process world) mark its
+        # corpse reaped so wait() does not re-record the kill as a fault
         for r in dead:
+            if self._proc is not None:
+                with self._proc._lock:
+                    self._proc._done.add(r)
             self.heartbeat.remove(r)
             self.stragglers.forget(r)
             with self._err_lock:
@@ -699,7 +734,8 @@ class MPIJob:
                 "coordinator": self.coord.stats.snapshot(),
                 "telemetry": self.coord.telemetry_summary(),
                 "stragglers": self.stragglers.report(),
-                "ledger": self.ledger.snapshot_stats(),
+                "ledger": (self.ledger.snapshot_stats()
+                           if self.ledger is not None else None),
                 "ckpt_store": health() if health is not None else None,
             }
 
@@ -714,11 +750,25 @@ class MPIJob:
             role="driver",
             trace_dir=str(trace_dir) if trace_dir is not None else None)
 
+    def rank_pids(self) -> Dict[int, int]:
+        """PID-based membership view of a PROCESS world (rank -> pid of
+        its live OS process); empty for thread worlds.  This is what real
+        fault injection targets: ``os.kill(job.rank_pids()[r], SIGKILL)``
+        (distributed/faults.kill_rank_process)."""
+        return self._proc.pids() if self._proc is not None else {}
+
     def stop(self) -> None:
         """Deterministic, leak-free teardown: stop every proxy (a
         fire-and-forget STOP — see MPIProxy.stop for why it must not be
         replied), JOIN the proxy threads, then stop the transport (which
-        joins its own reader/switchboard threads)."""
+        joins its own reader/switchboard threads).  A process world
+        additionally SIGTERM -> SIGKILLs any rank process still alive and
+        reaps its exit code — no orphans survive a stop()."""
+        if self._proc is not None:
+            self._proc.stop()
+            self.transport.stop()
+            _trace.dump(role="driver")
+            return
         for p in self.proxies:
             try:
                 p.stop()
@@ -811,7 +861,14 @@ class MPIJob:
                 if reshaped:
                     snap = remap_mpi_snapshot(snap, rank_map, r, new_n,
                                               clone=r >= len(survivors))
-                job.mpis[r].restore(snap)
+                if job._proc is not None:
+                    # process world: the snapshot restores INSIDE the
+                    # forked child (admin replay must run against the
+                    # child's own endpoint); stash it for fork-time
+                    # inheritance
+                    job._restore_snaps[r] = snap
+                else:
+                    job.mpis[r].restore(snap)
                 # first taker of an image gets the materialised object (no
                 # re-pickle pass); clones of the same image get private
                 # copies

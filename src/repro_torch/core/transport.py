@@ -621,3 +621,42 @@ class TcpTransport(Transport):
                 out.append(q.get_nowait())
             except queue.Empty:
                 return out
+
+
+@register_transport
+class ProcTransport(ShmTransport):
+    """Parent-side fabric of the PROCESS world (core/procworld.py).
+
+    Selecting ``transport="proc"`` on an MPIJob runs every rank as a real
+    OS process.  The cross-process hop is the child's socket to its
+    per-rank proxy endpoint in the launcher process (SG frames via
+    ``write_frame_parts``/``read_frame_mv`` above, exactly like
+    TcpTransport frames); endpoint threads then route envelopes between
+    ranks through THIS queue fabric.  Structurally: the child owns only
+    the plugin, the launcher owns every transport byte — the paper's proxy
+    split enforced by a real address-space boundary instead of a thread
+    convention."""
+
+    name = "proc"
+    #: the runtime keys process-world behavior off this attribute (not the
+    #: name), so ring-enabled subclasses inherit the whole launch path
+    proc_world = True
+    #: whether the ProcWorld should create a shared-memory tensor ring
+    use_ring = False
+
+
+@register_transport
+class ShmRingTransport(ProcTransport):
+    """Process world + the zero-copy shared-memory tensor ring
+    (core/dataplane.py, DESIGN.md §12).
+
+    Identical to ``proc`` except tensor payloads >= RING_PAYLOAD_MIN are
+    parked in a pre-fork ``multiprocessing.shared_memory`` ring and the
+    socket frames carry only descriptors (slot, length, generation stamp,
+    dtype, shape) — the launcher-side endpoint and the receiving child never see
+    the tensor bytes on the wire.  Falls back to inline SG frames
+    payload-by-payload whenever the ring is full or unavailable, so
+    results are bit-identical to ``proc``/``tcp`` by construction."""
+
+    name = "shmring"
+    use_ring = True

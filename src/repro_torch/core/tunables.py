@@ -11,6 +11,17 @@ The names are the reference's, so one setting governs both packages:
                                    serialization is effectively a shared
                                    resource; real clusters set this far
                                    lower.
+  REPRO_SHMRING_MIN_BYTES          shm tensor-ring crossover: proc-world
+                                   payloads at least this large park in
+                                   the shared-memory ring and the frame
+                                   carries a descriptor; smaller ones
+                                   ship inline.  Default 256 KiB.
+                                   REPRO_RING_MIN_BYTES is an accepted
+                                   alias.
+  REPRO_LEDGER                     "0" disables the ContributionLedger
+                                   (collective inputs are not pinned;
+                                   mid-collective recovery always falls
+                                   back to rollback-restart).
   REPRO_LEDGER_OPS                 max in-flight collective ops pinned
                                    per job (default 4; oldest evicted).
   REPRO_CHUNK_RETRIES              RemoteChunkStore connection-layer
@@ -114,7 +125,12 @@ def env_int(name: str, default: int, aliases: tuple = ()) -> int:
 #: Allreduce ring/tree algorithm crossover (core/api.py)
 ALLREDUCE_RING_MIN_BYTES = env_bytes("REPRO_ALLREDUCE_RING_MIN_BYTES", 1 << 23)
 
+#: shm tensor-ring inline/ring payload crossover (core/dataplane.py)
+SHMRING_MIN_BYTES = env_bytes("REPRO_SHMRING_MIN_BYTES", 1 << 18,
+                              aliases=("REPRO_RING_MIN_BYTES",))
+
 #: mid-collective recovery ledger (core/dataplane.py ContributionLedger)
+LEDGER_ENABLED = os.environ.get("REPRO_LEDGER", "1") != "0"
 LEDGER_MAX_OPS = env_int("REPRO_LEDGER_OPS", 4)
 
 #: RemoteChunkStore reconnect policy (checkpoint/chunkservice.py)

@@ -17,7 +17,7 @@ from pathlib import Path
 from typing import Any, Optional, Sequence, Tuple
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.core.runtime import PROCESS_WORLD_TRANSPORTS, MPIJob
+from repro_torch.core.runtime import MPIJob
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import make_mesh, world_size
 
@@ -96,13 +96,7 @@ def atomic_reshape(membership, dead: Sequence[int] = (),
         A rank checkpoint written by either package restarts here.
 
     Either layer alone is fine; passing both is the lockstep case the
-    name promises.  A process-world `transport` ("proc", "shmring")
-    raises ``NotImplementedError`` before anything is bumped.  Returns a
-    ``ReshapeReport``."""
-    if ckpt_dir is not None and transport in PROCESS_WORLD_TRANSPORTS:
-        raise NotImplementedError(
-            f"transport={transport!r}: the process world is ROADMAP.md, "
-            f"Queue 1, item 6c-ii")
+    name promises.  Returns a ``ReshapeReport``."""
     dead = tuple(sorted({int(r) for r in dead}))
     gen = membership.bump(dead, world_size=world_size)
     report = ReshapeReport(generation=gen,

@@ -1036,6 +1036,72 @@ def test_chip_smoke_rankworld_phase_on_cpu(smoke, capsys, monkeypatch):
     assert line["drained_messages"] == 0   # the DP ring ends in its step
 
 
+def _procworld_smoke(smoke, monkeypatch, **procworld):
+    """RANKWORLD's MLP at smoke widths, whose 512-byte allreduce chunks
+    ride the ring only below the 256 KiB crossover: lowered to 256 B."""
+    from repro_torch.core import procworld as pw
+    monkeypatch.setattr(smoke, "RANKWORLD",
+                        dict(smoke.RANKWORLD, **_RANKWORLD_SMOKE))
+    monkeypatch.setattr(smoke, "PROCWORLD",
+                        dict(smoke.PROCWORLD, **procworld))
+    monkeypatch.setattr(pw, "RING_PAYLOAD_MIN", 256)
+
+
+def test_chip_smoke_procworld_phase_on_cpu(smoke, capsys, monkeypatch):
+    """The procworld phase at smoke widths: 4 rank processes over shmring
+    checkpointed at step 6 and reshaped to 3 processes over proc under one
+    bump beside the smoke tree, bit-equal to a thread-world restart; the
+    driver's SIGKILL at step 8 restarted from at_00000005 onto shmring,
+    bit-equal to a thread-world restart; the CLI in a fresh interpreter.
+    No kernel runs."""
+    _procworld_smoke(smoke, monkeypatch)
+    counts = smoke.phase_procworld("cpu rehearsal, 0 W")
+    assert counts == {"flash_attention_fwd": 0, "rglru_scan": 0,
+                      "quantize_int8": 0, "dequantize_int8": 0}
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "procworld"'))
+    assert line["ok"] and line["error"] is None
+    assert line["transports"] == ["shmring", "proc", "shm", "proc",
+                                  "shmring"]
+    checks = line["checks"]
+    assert checks["generations"] == [1, 1, 1, 1]
+    assert checks["reshaped_world"] == 3 and checks["driver_world"] == 3
+    assert checks["cli_world_generation"] == [3, 1]
+    assert all(checks[k] for k in (
+        "pids_distinct", "exit_codes_zero", "ring_used", "leaves_equal",
+        "survivors_equal_images", "reshaped_equal_thread", "sigkilled",
+        "driver_equal_thread"))
+    assert line["events"] == [
+        "start:fresh", "fallback:[2]:RecoveryUnavailable:ledger-miss",
+        "dead:[2]:gen=1", "failure:RuntimeError",
+        "restart:at_00000005:world=3:gen=1", "done"]
+    # 6 steps x 4 ranks x 6 ring sends of w1's 512-byte chunk (w2's
+    # 128-byte chunks stay below the lowered crossover and ship inline)
+    assert line["chunk_bytes"] == 512
+    assert line["ring_bytes"] == 6 * 4 * 6 * 512
+    assert line["ring"]["slots"] >= 4 and line["shm_free_bytes"] > 0
+    assert len(line["pids"]["driver"]) == 2
+    assert set(line["seconds"]) == {
+        "save_s", "checkpointed_s", "reshape_s", "reshaped_run_s",
+        "thread_restart_s", "driver_s", "driver_thread_restart_s",
+        "kill_to_dead_s", "restart_to_done_s", "cli_s"}
+    assert 0 < line["seconds"]["kill_to_dead_s"] < 10
+
+
+def test_chip_smoke_procworld_phase_fails_without_a_kill(
+        smoke, capsys, monkeypatch):
+    """No rank is killed (the kill step lies past the run): no dead: event,
+    and the phase fails."""
+    _procworld_smoke(smoke, monkeypatch, kill_step=99)
+    with pytest.raises(smoke.PhaseFailed, match="procworld"):
+        smoke.phase_procworld("cpu rehearsal, 0 W")
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "procworld"'))
+    assert not line["ok"] and line["error"] is None
+    assert not line["checks"]["dead_event"]
+    assert line["events"] == ["start:fresh", "done"]
+
+
 def test_chip_smoke_rankworld_phase_fails_on_a_corrupted_image(
         smoke, capsys, monkeypatch):
     """One byte of rank 1's app part changed on disk after the checkpoint:

@@ -246,9 +246,12 @@ def test_group_incl_comm_create_group(transport):
 # ------------------------------------------------ registry & transport fabric
 
 def test_transport_registry_lists_and_rejects():
-    """The thread transports only: the process world's "proc" and
-    "shmring" come with it (ROADMAP item 6c-ii)."""
-    assert set(available_transports()) == {"shm", "tcp", "inproc"}
+    """The thread transports and the process world's "proc" and "shmring",
+    as the reference registers them."""
+    from repro.core import available_transports as r_available
+    assert set(available_transports()) == {"shm", "tcp", "inproc", "proc",
+                                           "shmring"}
+    assert sorted(available_transports()) == sorted(r_available())
     with pytest.raises(ValueError, match="unknown transport"):
         make_transport("infiniband")
 
@@ -305,11 +308,32 @@ def test_poll_wait_blocks_then_returns_batch(name):
 
 
 @pytest.mark.parametrize("transport", ["proc", "shmring"])
-def test_process_world_transports_refuse_before_anything_starts(transport):
-    before = threading.active_count()
-    with pytest.raises(NotImplementedError, match="6c-ii"):
-        MPIJob(2, lambda mpi, st, k: st, lambda mpi: {}, transport=transport)
-    assert threading.active_count() == before
+def test_process_world_transports_match_the_thread_world(transport):
+    """Every rank a forked OS process behind a socket proxy endpoint (and
+    with "shmring" the tensors of 256 KiB and more through the
+    shared-memory ring): point to point, collectives of both algorithms
+    and a split communicator give what the port's thread world and the
+    reference's give, bit for bit; the processes exit 0 and are reaped."""
+    def step(mpi, st, k):
+        me, n = mpi.Comm_rank(), mpi.Comm_size()
+        x = np.random.default_rng(me + 10 * k).standard_normal(1 << 16)
+        got = mpi.Sendrecv(x, (me + 1) % n, 3, (me - 1) % n, 3)
+        sub = mpi.Comm_split(color=me % 2, key=me)
+        out = {"got": got, "ring": mpi.Allreduce(x, "sum", algo="ring"),
+               "tree": mpi.Allreduce(x[:17], "max", algo="tree"),
+               "bcast": mpi.Bcast(np.arange(5) if me == 0 else None, 0),
+               "sub": mpi.Allreduce(np.float64(me), "sum", comm=sub)}
+        mpi.Comm_free(sub)
+        return out
+    job = MPIJob(4, step, lambda mpi: {}, transport=transport)
+    try:
+        got = job.run(2, timeout=60)
+        assert set(job._proc.exit_codes.values()) == {0}
+    finally:
+        job.stop()
+    assert not any(p.is_alive() for p in job._proc._procs.values())
+    assert _same(got, _run(MPIJob, 4, step, lambda mpi: {}, 2, "shm"))
+    assert _same(got, _run(RJob, 4, step, lambda mpi: {}, 2, "shm"))
 
 
 @pytest.mark.parametrize("transport", THREAD_TRANSPORTS)

@@ -121,12 +121,32 @@ def test_atomic_reshape_world_only(tmp_path):
 
 
 @pytest.mark.parametrize("transport", ["proc", "shmring"])
-def test_atomic_reshape_refuses_the_process_world(tmp_path, transport):
+def test_atomic_reshape_into_the_process_world(tmp_path, transport):
+    """The rank world reshaped into forked rank processes: rank 1 dead,
+    the world grown back to N from the survivor's image under one bump,
+    run to the end; equal to the reference's thread-world restart of the
+    same checkpoint under the same reshape."""
+    ck = tmp_path / "ck"
     membership = Membership(N)
-    with pytest.raises(NotImplementedError, match="6c-ii"):
-        atomic_reshape(membership, dead=(1,), ckpt_dir=tmp_path / "ck",
-                       step_fn=step_fn, init_fn=init_fn, transport=transport)
-    assert membership.generation == 0
+    job = MPIJob(N, step_fn, init_fn, transport="shm", membership=membership)
+    job.checkpoint_at(10, ck, resume=False)
+    _run(job, STEPS)
+    rep = atomic_reshape(membership, dead=(1,), world_size=N, ckpt_dir=ck,
+                         step_fn=step_fn, init_fn=init_fn,
+                         transport=transport)
+    assert rep.generation == 1 and rep.layers == ("world",)
+    assert rep.job.coord.generation == 1 and rep.job._proc is not None
+    assert rep.job.restore_info["rank_map"] == {"0": 0, "1": None}
+    out = _run(rep.job, STEPS)
+    assert set(rep.job._proc.exit_codes.values()) == {0}
+    ms = RMembership(N)
+    ms.bump(dead=[1], world_size=N)
+    want = _run(RJob.restart(ck, step_fn, init_fn, transport="shm",
+                             world_size=N, dead_ranks=[1], membership=ms),
+                STEPS)
+    for r in range(N):
+        for k in want[r]:
+            assert np.array_equal(out[r][k], want[r][k]), (r, k)
 
 
 # ----------------------------------------------------- bit-identical resume

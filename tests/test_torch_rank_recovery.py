@@ -6,10 +6,10 @@ rank killed inside the ring allreduce: the in-flight step finishes over
 the survivors, no generation bump, no restart, zero recomputation) and of
 a live-migration round of tests/test_live_migrate.py (rank 0 moved by
 pre-copy rounds while the world runs, bit-identical to a run that never
-moved).  The reference drives recovery through its FaultTolerantDriver,
-which comes to the port with the process world (ROADMAP item 6c-ii); here
-the test plays the driver's part: it watches the job's failed ranks and
-calls ``MPIJob.recover``."""
+moved; in the process world a replacement process is forked and joins).
+Here the test plays the driver's part: it watches the job's failed ranks
+and calls ``MPIJob.recover``; tests/test_torch_fault_driver.py drives the
+same through the port's FaultTolerantDriver."""
 import threading
 import time
 
@@ -129,7 +129,7 @@ def mig_step(mpi, state, step):
     return state
 
 
-@pytest.mark.parametrize("transport", ["shm", "tcp"])
+@pytest.mark.parametrize("transport", ["shm", "tcp", "proc"])
 def test_live_migrate_bit_identical(tmp_path, transport):
     """Rank 0 live-migrated mid-run: the world finishes bit-identical to
     the reference's run that never moved, and the migration's final

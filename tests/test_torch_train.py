@@ -10,6 +10,8 @@ Adam's first step is about lr·sign(g), so a gradient element near 0 that
 rounds the other way moves its parameter by up to 2·lr: gradients and the
 optimiser are held to the reference on identical inputs, and after several
 steps the loss trajectory, never the raw parameters."""
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,6 +228,53 @@ def test_token_pipeline_batches_are_byte_equal(seed):
             assert jb[k].dtype == tb[k].dtype == np.int32
             assert jb[k].tobytes() == tb[k].tobytes()
     assert tp.snapshot() == jp.snapshot()
+
+
+def test_pipeline_deterministic_and_resumable():
+    """tests/test_checkpoint.py's twin: a snapshot restores in the port and
+    in the reference to the same next batches, byte for byte."""
+    p1 = TPipeline(1000, 4, 16, seed=3)
+    batches = [p1.next_batch() for _ in range(5)]
+    snap = p1.snapshot()
+    more = [p1.next_batch() for _ in range(3)]
+    for cls in (TPipeline, JPipeline):
+        p2 = cls.restore(snap)
+        for a in more:
+            b = p2.next_batch()
+            for k in ("tokens", "targets"):
+                assert a[k].tobytes() == b[k].tobytes()
+    assert np.array_equal(TPipeline(1000, 4, 16, seed=3)._gen(2)["tokens"],
+                          batches[2]["tokens"])
+
+
+def test_pipeline_prefetch_and_inflight_cache():
+    """The prefetch thread's queued batches drained into the snapshot (the
+    paper's drain-to-cache) and served first after restore: the next batch
+    is batch 2, byte-equal to the reference's; the reference's drained
+    snapshot restores in the port alike."""
+    snaps = []
+    for cls in (TPipeline, JPipeline):
+        p = cls(1000, 2, 8, seed=1, prefetch=3)
+        p.start()
+        [p.next_batch() for _ in range(2)]
+        deadline = time.time() + 10
+        while p._q.qsize() < 1 and time.time() < deadline:
+            time.sleep(0.005)              # let the producer fill the queue
+        snap = p.snapshot(cache_inflight=True)
+        p.stop()
+        assert len(snap.get("inflight", [])) >= 1
+        assert snap["inflight"][0][0] == 2
+        snaps.append(snap)
+    ref = JPipeline(1000, 2, 8, seed=1)._gen(2)
+    for snap in snaps:
+        p2 = TPipeline.restore(snap)
+        p2.start()
+        nxt = [p2.next_batch() for _ in range(len(snap["inflight"]) + 1)]
+        p2.stop()
+        assert nxt[0]["tokens"].tobytes() == ref["tokens"].tobytes()
+        tail = JPipeline(1000, 2, 8, seed=1)._gen(2 + len(nxt) - 1)
+        assert nxt[-1]["targets"].tobytes() == tail["targets"].tobytes()
+        assert p2.cursor == 2 + len(nxt)
 
 
 # ------------------------------------------------------------- one step
