@@ -100,6 +100,18 @@ one JSON line each; any failure exits non-zero:
                  interpreter: world=3 generation=1.  /dev/shm, the ring as
                  created, ring_bytes, pids, exit codes, each stage's
                  seconds, kill -> dead and restart -> done.  No kernel runs
+  examples       examples/torch/{quickstart,elastic_restart,serve_batched,
+                 train_driver}.py, the twins of examples/*.py, each in a
+                 fresh interpreter on the card, side by side: quickstart's
+                 restart bitwise identical; one checkpoint resumed on 2,
+                 4 and 1 ranks; the serving snapshot; train_driver crashed
+                 at step 25 and rerun resumes from step 20 with the last
+                 losses of an uninterrupted run.  Before them the
+                 quickstart world live-migrates rank 0, bit-equal to the
+                 world that never moved (each round's bytes, the pause),
+                 and python -m repro_torch.core.trace merge joins its
+                 dump (events counted).  Each leg's seconds and kernel
+                 launches (none at these shapes; a path only where some)
   serve-parity-hybrid
                  full-width recurrentgemma-9b (seeded random weights), fp32,
                  B=1, prompt 2560 (past the 2048 window): kernels vs plain
@@ -125,8 +137,8 @@ one JSON line each; any failure exits non-zero:
                  both captured and uncaptured, each one's prefill and
                  decode step; a fresh process's first DTensor; then
                  smollm-135m's widths at a 2-layer cut, fp32, B=4, 128+8,
-                 in CPU gloo worlds of 2 ranks (1, 2) and 4 ranks (2, 2)
-                 beside the card: tokens equal to the one-device engine's,
+                 in CPU gloo worlds of 2 ranks (1, 2) and 4 ranks (2, 2),
+                 side by side, beside the card: tokens equal to the one-device engine's,
                  logits within 1e-4, each block within 1e-4 of its
                  output's scale (at least 1), each rank's bytes of
                  params and cache the sum of its windows (9 query and 3
@@ -259,8 +271,10 @@ one JSON line each; any failure exits non-zero:
                  share of the bound; the RG-LRU scratch traffic, from a
                  launch that counts it, and that launch's time
 
-Then one line {"kernels": [...]}, the card's name and power limit as
-nvidia-smi gives them, and last {"ok": true, "device": {...}}.
+A phase's line carries its named checks under "held"; a failed phase
+names those that failed under "failed".  Then one line {"kernels": [...]},
+the card's name and power limit as nvidia-smi gives them, and last
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -276,6 +290,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -415,11 +430,29 @@ PROCWORLD = dict(ranks=4, dead=(3,), steps=10, ckpt_at=6, transport="shmring",
                            "2", "--kill-step", "8"),
                  timeout_s=300)
 REMOTE_LEGS = {"local": 0, "remote": 1, "sharded": 3}
+# the examples phase: each twin of examples/*.py in examples/torch/ run in a
+# fresh interpreter, all side by side, on DEV; train_driver with train's
+# flags uninterrupted, and again crashed after kill_at and rerun; before
+# them, in this process, the quickstart world (4 ranks of make_dp_app over
+# shm) run migrate_steps while rank 0 is live-migrated, its trace dumped
+# and merged by the trace CLI
+EXAMPLES = dict(legs=("quickstart", "elastic_restart", "serve_batched",
+                      "train_driver", "train_driver_kill"),
+                serve=dict(arch="yi-9b", batch=4, prompt_len=16,
+                           new_tokens=24),
+                train=dict(steps=40, preset="tiny", batch=8, seq=64,
+                           ckpt_every=10), kill_at=25,
+                migrate_ranks=4, migrate_steps=400, migrate_rounds=4,
+                timeout_s=300)
 # the sharded phase: its CPU worlds (ranks, mesh) and their model, ARCH's
 # widths at a depth cut (the full-depth random stack is chaotic), fp32;
-# logits within tol, each block's output within tol of its scale
+# logits within tol, each block's output within tol of its scale.  One
+# intra-op thread a rank: with torch's default, a thread a core, one
+# rank's replica of a batch row at times leaves its peers' in the first
+# prefill (6 ranks on 8 cores, torch 2.11; tools/sharded_worlds.py)
 SHARDED = dict(worlds=((2, (1, 2)), (4, (2, 2))), layers=2, batch=4,
-               prompt=128, new_tokens=8, tol=1e-4, world_timeout_s=300)
+               prompt=128, new_tokens=8, tol=1e-4, threads=1,
+               world_timeout_s=300)
 REMOTE_SERVERS = "processes"
 # the train step's fp32 AdamW against an fp64 one on the same gradients:
 # fp32 rounding of the clip norm over 134.5 M squares and of each update
@@ -465,11 +498,22 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def emit(phase: str, ok: bool, card_line: str, **fields) -> None:
-    print(json.dumps({"phase": phase, "ok": ok, **fields, "card": card_line}),
-          flush=True)
+def emit(phase: str, ok, card_line: str, **fields) -> None:
+    """Print the phase's line and raise ``PhaseFailed`` if it failed.
+    `ok` is a bool, or a dict of named checks that must all hold: the line
+    then carries them under ``held``, and a failed phase names the checks
+    that failed under ``failed``, in the line and in the exception."""
+    failed = []
+    if isinstance(ok, dict):
+        failed = [name for name, held in ok.items() if not held]
+        fields = {"held": {k: bool(v) for k, v in ok.items()}, **fields}
+        ok = not failed
+    print(json.dumps({"phase": phase, "ok": ok,
+                      **({"failed": failed} if failed else {}), **fields,
+                      "card": card_line}), flush=True)
     if not ok:
-        raise PhaseFailed(phase)
+        raise PhaseFailed(f"{phase}: {', '.join(failed)}" if failed
+                          else phase)
 
 
 def sync() -> None:
@@ -635,9 +679,11 @@ def phase_build(card_line):
     fns = [f for lib_fns in ptxas.values() for f in lib_fns]
     flash = flash_instantiations(fns)
     spills = flash_spills(fns)
-    emit("build", all(lib.exists() for lib in libs)
-         and all(len(found) == len(flash_attention._HEAD_DIMS)
-                 for found in flash.values()) and not spills,
+    emit("build", {"libraries_built": all(lib.exists() for lib in libs),
+                   "every_flash_head_dim": all(
+                       len(found) == len(flash_attention._HEAD_DIMS)
+                       for found in flash.values()),
+                   "no_flash_spills": not spills},
          card_line, build_s=build_s, ptxas=ptxas, flash_spills=spills,
          rglru_ptxas=[f for f in fns if "rglru" in f["function"]])
 
@@ -820,7 +866,7 @@ def phase_kernels(card_line):
     quant_worst, quant_bad, quant_errs, n_quant = _check_quant(gen)
     sync()
     bad = flash_bad + rglru_bad + quant_bad
-    emit("kernels", not bad, card_line, cases=n_flash + n_rglru + n_quant,
+    emit("kernels", {"all_cases_held": not bad}, card_line, cases=n_flash + n_rglru + n_quant,
          tolerance={"flash_attention_fwd": {**TOL, "constant_v": 1e-5},
                     "rglru_scan": {**RGLRU_TOL, "linearity": 1e-4},
                     "quantize_int8": {"codes": "exact", "scale_rtol": 1e-6,
@@ -1039,16 +1085,19 @@ def _parity(arch, b, p, n_new, cut_layers):
     out["cut_tokens_kernels"] = gen[True].tolist()
     route_margins = [m for f in out.get("routing_flips", [])
                      for m in f["margins"]]
-    ok = (out["logits_finite"]
-          and max(out["block_max_abs_diff"].values()) <= PARITY_TOL
-          and out["cut_logits_diff"] <= PARITY_TOL and not bad
-          and all(m < ROUTE_TIE for m in route_margins))
+    ok = {"logits_finite": out["logits_finite"],
+          "blocks_within_tol": max(out["block_max_abs_diff"].values())
+          <= PARITY_TOL,
+          "cut_logits_within_tol": out["cut_logits_diff"] <= PARITY_TOL,
+          "no_flip_off_a_tie": not bad,
+          "routing_flips_at_ties": all(m < ROUTE_TIE for m in route_margins)}
     return ok, cfg, out
 
 
 def phase_serve_parity(card_line):
     ok, cfg, out = _parity(ARCH, 2, 128, 8, CUT_LAYERS)
-    ok = ok and out["prefill_launches"] == {"flash": cfg.n_layers, "rglru": 0}
+    ok["prefill_launches"] = out["prefill_launches"] == {
+        "flash": cfg.n_layers, "rglru": 0}
     emit("serve-parity", ok, card_line, arch=ARCH, dtype="float32", batch=2,
          prompt=128, new_tokens=8, cut_layers=CUT_LAYERS,
          tolerance=PARITY_TOL, **out)
@@ -1060,7 +1109,7 @@ def phase_serve_parity_hybrid(card_line):
                            HYBRID_CUT_LAYERS)
     kinds = cfg.layer_kinds()
     want = {"flash": kinds.count("local_attn"), "rglru": kinds.count("rglru")}
-    ok = ok and out["prefill_launches"] == want
+    ok["prefill_launches"] = out["prefill_launches"] == want
     emit("serve-parity-hybrid", ok, card_line, arch=HYBRID, dtype="float32",
          batch=1, prompt=HYBRID_PARITY_PROMPT, new_tokens=8,
          cut_layers=HYBRID_CUT_LAYERS, tolerance=PARITY_TOL,
@@ -1239,10 +1288,12 @@ def phase_serve(card_line):
     del eng
     free()
     want_leaves = _payload_leaves(ARCH, 4, 128 + 32 + 8)
-    ok = (counts == want and row["flash_launches"] == n_layers
-          and _graphs_ok(checks, counts, want)
-          and row["prefill_s"] > 0 and row["decode_s"] > 0
-          and valid and plan["n_leaves"] == want_leaves)
+    ok = {"launches": counts == want,
+          "cli_flash_launches": row["flash_launches"] == n_layers,
+          "graphs": _graphs_ok(checks, counts, want),
+          "timed": row["prefill_s"] > 0 and row["decode_s"] > 0,
+          "snapshot_valid": valid,
+          "snapshot_leaves": plan["n_leaves"] == want_leaves}
     emit("serve", ok, card_line, arch=ARCH, batch=4, prompt_len=128,
          new_tokens=32, dtype="bfloat16", prefill_s=row["prefill_s"],
          decode_s=row["decode_s"], tok_per_s=row["tok_per_s"],
@@ -1320,10 +1371,13 @@ def phase_checkpoint(card_line):
         restore = {k: mgr.stats[k] for k in _RESTORE_STATS}
     del params, leaves
     free()
-    ok = (equal and on_card and meta["step"] == 0
-          and save["last_bytes_written"] + save["last_bytes_referenced"]
-          == n_bytes and resave["last_bytes_written"] == 0
-          and resave["last_bytes_referenced"] == n_bytes)
+    ok = {"leaves_equal": equal, "on_card": on_card,
+          "step": meta["step"] == 0,
+          "save_bytes": save["last_bytes_written"]
+          + save["last_bytes_referenced"] == n_bytes,
+          "resave_writes_nothing": resave["last_bytes_written"] == 0,
+          "resave_references_all": resave["last_bytes_referenced"]
+          == n_bytes}
     emit("checkpoint", ok, card_line, arch=ARCH, dtype="float32",
          param_bytes=n_bytes, codec=codec, save_s=save_s, save=save,
          restore_s=restore_s, restore=restore, leaves_equal=equal,
@@ -1533,13 +1587,15 @@ def phase_elastic(card_line):
                      and r[k]["source_world"] == {"n_devices": 1}
                      for r in reverse for k, m in expect_reverse.items())
     written = sum(s["bytes_written"] for s in saves)
-    ok = (equal and on_card and tokens_equal and logits_equal
-          and launches["flash_attention_fwd"] == cfg.n_layers
-          and meta["source_world"] == {"n_devices": ELASTIC["ranks"]}
-          and meta["restored_onto"] == {"devices": 1,
-                                        "mesh": {"data": 1, "model": 1}}
-          and meta["topology_changed"] is True and raw == n_bytes
-          and reverse_ok)
+    ok = {"leaves_equal": equal, "on_card": on_card,
+          "tokens_equal": tokens_equal, "logits_equal": logits_equal,
+          "flash_launches": launches["flash_attention_fwd"] == cfg.n_layers,
+          "source_world": meta["source_world"]
+          == {"n_devices": ELASTIC["ranks"]},
+          "restored_onto": meta["restored_onto"]
+          == {"devices": 1, "mesh": {"data": 1, "model": 1}},
+          "topology_changed": meta["topology_changed"] is True,
+          "raw_bytes": raw == n_bytes, "reverse": reverse_ok}
     emit("elastic", ok, card_line, arch=ARCH, dtype="float32",
          param_bytes=n_bytes, world={"ranks": ELASTIC["ranks"],
                                      "mesh": ELASTIC["mesh"],
@@ -1758,8 +1814,10 @@ def phase_rankworld(card_line):
             # each rank's message of step ckpt_at - 1 is in flight
             "boundary_drained": n, "boundary_image_step": rw["ckpt_at"],
             "boundary_cached_envelopes": n, "boundary_restart_equal": True}
-    ok = (error is None and all(checks.get(k) == v for k, v in want.items())
-          and step_idx == rw["ckpt_at"] and not any(counts.values()))
+    ok = {"no_error": error is None,
+          **{k: checks.get(k) == v for k, v in want.items()},
+          "image_step": step_idx == rw["ckpt_at"],
+          "no_launches": not any(counts.values())}
     params_bytes = 4 * (rw["din"] * rw["dh"] + rw["dh"] * rw["dout"])
     emit("rankworld", ok, card_line, arch=ARCH, dtype="float32",
          app={k: rw[k] for k in ("din", "dh", "dout", "batch_per_rank")},
@@ -2029,8 +2087,9 @@ def phase_procworld(card_line):
             "driver_world": n - 1, "driver_params_equal": True,
             "driver_equal_thread": True, "cli_rc": 0,
             "cli_world_generation": [3, 1]}
-    ok = (error is None and all(checks.get(k) == v for k, v in want.items())
-          and not any(counts.values()))
+    ok = {"no_error": error is None,
+          **{k: checks.get(k) == v for k, v in want.items()},
+          "no_launches": not any(counts.values())}
     emit("procworld", ok, card_line, arch=ARCH, dtype="float32", app=app,
          chunk_bytes=chunk_bytes, ranks=n, dead=list(dead),
          transports=[pw["transport"], pw["reshape_to"], pw["thread_to"],
@@ -2039,6 +2098,234 @@ def phase_procworld(card_line):
          kill=[pw["kill_rank"], pw["kill_step"]],
          cli=" ".join(pw["cli_args"]), checks=checks, error=error,
          seconds=seconds, pids=pids, launches=counts, **info)
+    return counts
+
+
+_EXAMPLE_LEG = r"""
+import json, runpy, sys, time
+from repro_torch.kernels import ops
+path = sys.argv[1]
+sys.argv = sys.argv[1:]
+t0 = time.perf_counter()
+try:
+    runpy.run_path(path, run_name="__main__")
+finally:
+    print(json.dumps({"leg_s": time.perf_counter() - t0, "launches": {
+        "flash_attention_fwd": ops.FLASH_LAUNCHES,
+        "rglru_scan": ops.RGLRU_LAUNCHES, "quantize_int8": ops.QUANT_LAUNCHES,
+        "dequantize_int8": ops.DEQUANT_LAUNCHES}}), file=sys.stderr)
+"""
+
+
+def _example(name: str, *args) -> dict:
+    """examples/torch/<name>.py with `args` and ``--device DEV`` in a fresh
+    interpreter; its return code, standard output, seconds and the
+    kernels its process launched."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXAMPLE_LEG,
+         str(ROOT / "examples" / "torch" / f"{name}.py"), *args,
+         "--device", DEV], cwd=ROOT, capture_output=True, text=True,
+        timeout=EXAMPLES["timeout_s"],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    tail = [json.loads(ln) for ln in proc.stderr.splitlines()
+            if ln.startswith('{"leg_s"')]
+    out = {"rc": proc.returncode, "stdout": proc.stdout,
+           "wall_s": time.perf_counter() - t0,
+           "leg_s": tail[-1]["leg_s"] if tail else None,
+           "launches": tail[-1]["launches"] if tail else None}
+    if proc.returncode:
+        out.update(stdout_tail=proc.stdout[-2000:],
+                   stderr=proc.stderr[-2000:])
+    return out
+
+
+def _flags(kw: dict) -> list:
+    """``{"new_tokens": 24}`` as ``["--new-tokens", "24"]``."""
+    return [a for k, v in kw.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def _last_losses(stdout: str):
+    """The last three losses train_driver prints, as printed."""
+    import ast
+    m = re.search(r"^losses: .* \.\.\. (\[.*\])$", stdout, re.M)
+    return ast.literal_eval(m[1]) if m else None
+
+
+def _example_legs(d: Path) -> dict:
+    """EXAMPLES' legs side by side, each in its own thread."""
+    from concurrent.futures import ThreadPoolExecutor
+    ex = EXAMPLES
+    train = _flags(ex["train"])
+
+    def kill_and_resume():
+        ck = str(d / "killed")
+        first = _example("train_driver", *train, "--ckpt-dir", ck,
+                         "--kill-at", str(ex["kill_at"]))
+        return {"killed": first,
+                "resumed": _example("train_driver", *train, "--ckpt-dir", ck)}
+
+    runs = {"quickstart": lambda: _example("quickstart"),
+            "elastic_restart": lambda: _example("elastic_restart"),
+            "serve_batched": lambda: _example("serve_batched",
+                                              *_flags(ex["serve"])),
+            "train_driver": lambda: _example(
+                "train_driver", *train, "--ckpt-dir", str(d / "full")),
+            "train_driver_kill": kill_and_resume}
+    with ThreadPoolExecutor(len(ex["legs"])) as pool:
+        futs = {name: pool.submit(runs[name]) for name in ex["legs"]}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def _migration(d: Path) -> dict:
+    """The quickstart world run migrate_steps with rank 0 live-migrated
+    while it runs, against the same world run without; its trace dumped,
+    then merged by ``python -m repro_torch.core.trace merge``."""
+    import numpy as np
+    from repro_torch.core import trace
+    from repro_torch.core.runtime import MPIJob
+    from repro_torch.distributed.proxy_grad import make_dp_app
+    ex = EXAMPLES
+    n, steps = ex["migrate_ranks"], ex["migrate_steps"]
+    init_fn, step_fn = make_dp_app(lr=0.05)
+    trace.clear()
+    job = MPIJob(n, step_fn, init_fn, transport="shm")
+    box = {}
+
+    def runner():
+        try:
+            box["out"] = job.run(steps, timeout=ex["timeout_s"])
+        except BaseException as e:  # noqa: BLE001 - reported in the line
+            box["err"] = e
+
+    t = threading.Thread(target=runner, daemon=True)
+    t.start()
+    try:
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        rep = job.migrate(d / "migrated", ranks=(0,),
+                          max_rounds=ex["migrate_rounds"],
+                          timeout=ex["timeout_s"])
+        migrate_s = time.perf_counter() - t0
+        t.join(ex["timeout_s"])
+        dump = job.dump_trace(d / "traces")
+    finally:
+        job.stop()
+    if "err" in box:
+        raise box["err"]
+    ctrl = MPIJob(n, step_fn, init_fn, transport="shm")
+    try:
+        want = ctrl.run(steps, timeout=ex["timeout_s"])
+    finally:
+        ctrl.stop()
+    got = box["out"]
+    merged = d / "timeline.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.trace", "merge",
+         str(d / "traces"), "-o", str(merged)], cwd=ROOT,
+        capture_output=True, text=True, timeout=ex["timeout_s"],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    said = re.search(r"merged (\d+) dump\(s\), (\d+) events", proc.stdout)
+    names = ({e["name"] for e in json.loads(merged.read_text())["traceEvents"]}
+             if merged.exists() else set())
+    return {"ranks": n, "steps": steps, "converged": rep["converged"],
+            "round_dirty_bytes": [r["dirty_bytes"] for r in rep["rounds"]],
+            "final_bytes": rep["final_bytes"],
+            "total_bytes": rep["total_bytes"], "pause_s": rep["pause_s"],
+            "migrate_s": migrate_s, "dump": dump is not None,
+            "params_equal": all(
+                np.array_equal(got[r]["params"][k], want[r]["params"][k])
+                for r in range(n) for k in want[r]["params"]),
+            "merge": {"rc": proc.returncode,
+                      "dumps": int(said[1]) if said else None,
+                      "events": int(said[2]) if said else None,
+                      "migrate_spans": sorted(x for x in names
+                                              if x.startswith("migrate"))}}
+
+
+def phase_examples(card_line):
+    """examples/torch/: the four twins of the reference's examples, each in
+    a fresh interpreter on DEV, side by side, each held to its result line
+    (quickstart's restart bitwise identical; train_driver crashed after
+    kill_at and rerun resumes from its last checkpoint with the last
+    losses of the uninterrupted run); before them a live migration of the
+    quickstart world, bit-equal to the world that never moved, and the
+    merge of its trace.  Returns the kernel launches of the legs'
+    processes."""
+    ex = EXAMPLES
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="examples-") as td:
+        d = Path(td)
+        migration = _migration(d)
+        legs = _example_legs(d)
+    wall_s = time.perf_counter() - t0
+    kill = legs.get("train_driver_kill")
+    runs = [legs[k] for k in legs if k != "train_driver_kill"]
+    if kill:
+        runs += [kill["killed"], kill["resumed"]]
+    counts = {k: sum((r["launches"] or {}).get(k, 0) for r in runs)
+              for k in ("flash_attention_fwd", "rglru_scan", "quantize_int8",
+                        "dequantize_int8")}
+    result = {}
+    for name, r in legs.items():
+        if name == "train_driver_kill":
+            continue
+        lines = [ln for ln in r["stdout"].splitlines()
+                 if ln.startswith(("RESULT:", "arch=", "serving state",
+                                   "losses:", "done in"))]
+        result[name] = {"rc": r["rc"], "wall_s": r["wall_s"],
+                        "leg_s": r["leg_s"], "lines": lines,
+                        **{k: r[k] for k in ("stdout_tail", "stderr")
+                           if k in r}}
+    checks = {}
+    if "quickstart" in legs:
+        checks["quickstart_bitwise"] = (
+            "RESULT: cross-implementation restart bitwise identical: True"
+            in legs["quickstart"]["stdout"].splitlines())
+    if "elastic_restart" in legs:
+        checks["elastic_three_topologies"] = legs["elastic_restart"][
+            "stdout"].rstrip().endswith("cross-implementation restart works")
+    if "serve_batched" in legs:
+        out = legs["serve_batched"]["stdout"]
+        sv = ex["serve"]
+        checks["serve_snapshot"] = (
+            "serving state checkpointed mid-generation" in out
+            and f"out shape ({sv['batch']}, {sv['new_tokens']})" in out)
+    if "train_driver" in legs:
+        checks["train_losses"] = _last_losses(
+            legs["train_driver"]["stdout"]) is not None
+    if kill:
+        resumed = kill["resumed"]["stdout"]
+        result["train_driver_kill"] = {
+            step: {"rc": r["rc"], "wall_s": r["wall_s"], "leg_s": r["leg_s"],
+                   "lines": [ln for ln in r["stdout"].splitlines()
+                             if ln.startswith(("CRASHED", "losses:",
+                                               "auto-resumed"))]}
+            for step, r in kill.items()}
+        checks["train_crashed"] = ("CRASHED (as requested)"
+                                   in kill["killed"]["stdout"])
+        every = ex["train"]["ckpt_every"]
+        last = ex["kill_at"] // every * every
+        checks["train_resumed_from_last"] = (
+            f"auto-resumed from checkpoint at step {last}" in resumed)
+        got = _last_losses(resumed)
+        want = (_last_losses(legs["train_driver"]["stdout"])
+                if "train_driver" in legs else None)
+        checks["train_resumed_losses_equal"] = bool(
+            got and want and got == want[-len(got):])
+    checks["all_rc_zero"] = all(r["rc"] == 0 for r in runs)
+    checks["migrate_converged"] = migration["converged"]
+    checks["migrate_params_equal"] = migration["params_equal"]
+    checks["trace_merged"] = (migration["merge"]["rc"] == 0
+                              and (migration["merge"]["events"] or 0) > 0
+                              and "migrate" in migration["merge"][
+                                  "migrate_spans"])
+    emit("examples", checks, card_line, legs=list(ex["legs"]),
+         results=result, migration=migration, launches=counts,
+         seconds={"wall_s": wall_s, "migration_s": migration["migrate_s"],
+                  **{k: v["wall_s"] for k, v in result.items()
+                     if "wall_s" in v}})
     return counts
 
 
@@ -2056,10 +2343,12 @@ def phase_serve_hybrid(card_line):
     checks = _graph_checks(eng, hs["batch"], hs["prompt"], hs["new_tokens"])
     del eng
     free()
-    ok = (counts == want and row["flash_launches"] == want["flash_attention_fwd"]
-          and row["rglru_launches"] == want["rglru_scan"]
-          and _graphs_ok(checks, counts, want)
-          and row["prefill_s"] > 0 and row["decode_s"] > 0)
+    ok = {"launches": counts == want,
+          "cli_flash_launches": row["flash_launches"]
+          == want["flash_attention_fwd"],
+          "cli_rglru_launches": row["rglru_launches"] == want["rglru_scan"],
+          "graphs": _graphs_ok(checks, counts, want),
+          "timed": row["prefill_s"] > 0 and row["decode_s"] > 0}
     emit("serve-hybrid", ok, card_line, arch=HYBRID, batch=hs["batch"],
          prompt_len=hs["prompt"], new_tokens=hs["new_tokens"],
          dtype="bfloat16", prefill_s=row["prefill_s"],
@@ -2133,6 +2422,7 @@ from repro_torch.models.params import init_params, is_pm, tree_leaves
 from repro_torch.models.registry import get_api
 from repro_torch.serve.engine import ServeEngine
 args = json.loads(ARGS)
+torch.set_num_threads(args["threads"])
 rank = join_world()
 mesh = make_mesh(tuple(args["mesh"]), ("data", "model"), device="cpu")
 coord = mesh.get_coordinate()
@@ -2188,7 +2478,8 @@ cdefs = api.cache_defs(cfg, b, max_seq, torch.float32)
 size = lambda dt: torch.empty((), dtype=dt).element_size()
 attn = eng.params["units"]["b0"]["attn"]
 print(json.dumps({
-    "rank": rank, "coord": coord, "serve_s": serve_s,
+    "rank": rank, "coord": coord, "threads": torch.get_num_threads(),
+    "serve_s": serve_s,
     "tokens_equal": bool(np.array_equal(res.tokens, ref.tokens)),
     "logits_max_abs_diff": float((eng.last_logits(b)
                                   - plain.last_logits(b)).abs().max()),
@@ -2229,26 +2520,31 @@ print(json.dumps({"imports_s": t1 - t0, "mesh_s": t2 - t1,
 
 
 def _sharded_worlds() -> list:
-    """The sharded child in each CPU world; each rank's JSON."""
+    """The sharded child in each CPU world, the worlds side by side; each
+    rank's JSON."""
     import pickle
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import run_world
     cfg = dataclasses.replace(get_arch(ARCH), n_layers=SHARDED["layers"])
-    out = []
-    for n, mesh in SHARDED["worlds"]:
-        args = {k: SHARDED[k] for k in ("batch", "prompt", "new_tokens")}
+
+    def world(n, mesh):
+        args = {k: SHARDED[k] for k in ("batch", "prompt", "new_tokens",
+                                        "threads")}
         args.update(mesh=list(mesh), cfg=pickle.dumps(cfg).hex())
         t0 = time.perf_counter()
         outs = run_world(n, f"ARGS = {json.dumps(args)!r}\n" + _SHARDED_CHILD,
                          timeout_s=SHARDED["world_timeout_s"],
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          cwd=ROOT)
-        out.append({"ranks": n, "mesh": {"data": mesh[0], "model": mesh[1]},
-                    "world_s": time.perf_counter() - t0,
-                    "per_rank": [json.loads(o.strip().splitlines()[-1])
-                                 for o in outs]})
-    return out
+        return {"ranks": n, "mesh": {"data": mesh[0], "model": mesh[1]},
+                "world_s": time.perf_counter() - t0,
+                "per_rank": [json.loads(o.strip().splitlines()[-1])
+                             for o in outs]}
+
+    with ThreadPoolExecutor(len(SHARDED["worlds"])) as pool:
+        return list(pool.map(lambda w: world(*w), SHARDED["worlds"]))
 
 
 def _first_dtensor() -> dict:
@@ -2340,20 +2636,27 @@ def phase_sharded(card_line):
     first_dtensor = _first_dtensor()
     worlds = _sharded_worlds()
     tol = SHARDED["tol"]
-    world_ok = all(
-        r["tokens_equal"] and r["logits_max_abs_diff"] <= tol
-        and all(d <= tol * max(1.0, sc) for d, sc in
-                zip(r["block_max_abs_diff"], r["block_scale"]))
-        and r["param_bytes"] == r["param_window_bytes"]
-        and r["cache_bytes"] == r["cache_window_bytes"]
-        for w in worlds for r in w["per_rank"])
+    ranks = [r for w in worlds for r in w["per_rank"]]
+    world_ok = {
+        "worlds_tokens_equal": all(r["tokens_equal"] for r in ranks),
+        "worlds_logits_within_tol": all(r["logits_max_abs_diff"] <= tol
+                                        for r in ranks),
+        "worlds_blocks_within_tol": all(
+            d <= tol * max(1.0, sc) for r in ranks
+            for d, sc in zip(r["block_max_abs_diff"], r["block_scale"])),
+        "worlds_param_windows": all(
+            r["param_bytes"] == r["param_window_bytes"] for r in ranks),
+        "worlds_cache_windows": all(
+            r["cache_bytes"] == r["cache_window_bytes"] for r in ranks),
+        "worlds_threads": all(r["threads"] == SHARDED["threads"]
+                              for r in ranks)}
     want = {"flash_attention_fwd": 12, "rglru_scan": 26}
     if DEV != "cuda":           # smoke widths: one per block of each kind
         kinds = cfg.layer_kinds()
         want = {"flash_attention_fwd": kinds.count("local_attn"),
                 "rglru_scan": kinds.count("rglru")}
-    ok = (shared and all(checks.values()) and world_ok
-          and all(counts[k] == v for k, v in want.items()))
+    ok = {"storage_shared": shared, **checks, **world_ok,
+          "launches": all(counts[k] == v for k, v in want.items())}
     emit("sharded", ok, card_line, arch=HYBRID, dtype="bfloat16",
          batch=b, prompt_len=p, new_tokens=n_new,
          mesh={"data": 1, "model": 1}, rules="baseline",
@@ -2364,6 +2667,7 @@ def phase_sharded(card_line):
                  "dtype": "float32", "batch": SHARDED["batch"],
                  "prompt_len": SHARDED["prompt"],
                  "new_tokens": SHARDED["new_tokens"], "tol": tol,
+                 "threads": SHARDED["threads"],
                  "note": "9 query and 3 kv heads do not divide model = 2: "
                          "the attention stays replicated; the ffn and the "
                          "vocab split", "runs": worlds})
@@ -2416,9 +2720,10 @@ def phase_snapshot_hybrid(card_line):
                                   snap["pos"], SNAPSHOT_CONTINUE)
     sync()
     logits_diff = float((live_logits.float() - cont_logits.float()).abs().max())
-    ok = (equal and torch.equal(live, cont) and meta["kind"] == "serve"
-          and bool(torch.isfinite(cont_logits).all())
-          and (capture_s > 0) == (DEV == "cuda"))
+    ok = {"leaves_equal": equal, "tokens_equal": torch.equal(live, cont),
+          "kind": meta["kind"] == "serve",
+          "logits_finite": bool(torch.isfinite(cont_logits).all()),
+          "captured_on_card": (capture_s > 0) == (DEV == "cuda")}
     del eng, snap, live_logits, cont_logits
     emit("snapshot-hybrid", ok, card_line, arch=HYBRID, dtype="bfloat16",
          batch=hs["batch"], prompt_len=hs["prompt"],
@@ -2443,7 +2748,7 @@ def phase_serve_parity_moe(card_line):
     free_and_reset_peak()
     ok, cfg, out = _parity(MOE, 1, MOE_PARITY_PROMPT, 8, MOE_CUT_LAYERS)
     want = {"flash": cfg.n_layers, "rglru": 0}
-    ok = ok and out["prefill_launches"] == want
+    ok["prefill_launches"] = out["prefill_launches"] == want
     flips = out["routing_flips"]
     emit("serve-parity-moe", ok, card_line, arch=MOE, dtype="float32",
          batch=1, prompt=MOE_PARITY_PROMPT, new_tokens=8,
@@ -2508,9 +2813,10 @@ def _serve_cell(arch, flash_launches, shape=None, snapshot_dir=None):
                            request_extras(eng.cfg, ms["batch"]))
     bound = decode_bound(eng, ms["batch"], ms["prompt"], ms["new_tokens"])
     step_ms = checks["second_request"]["decode_step_ms"]
-    ok = (counts == want and row["flash_launches"] == flash_launches
-          and _graphs_ok(checks, counts, want)
-          and row["prefill_s"] > 0 and row["decode_s"] > 0)
+    ok = {"launches": counts == want,
+          "cli_flash_launches": row["flash_launches"] == flash_launches,
+          "graphs": _graphs_ok(checks, counts, want),
+          "timed": row["prefill_s"] > 0 and row["decode_s"] > 0}
     fields = dict(arch=arch, batch=ms["batch"], prompt_len=ms["prompt"],
                   new_tokens=ms["new_tokens"], dtype="bfloat16",
                   n_params=get_arch(arch).n_params(),
@@ -2624,8 +2930,10 @@ def phase_serve_mla(card_line):
     cache = mla_cache_bytes(eng, ms["batch"])
     del eng
     free()
-    ok = (ok and valid and plan["n_leaves"] == want_leaves
-          and absorbed["max_diff_over_scale"] <= PARITY_TOL)
+    ok.update(snapshot_valid=valid,
+              snapshot_leaves=plan["n_leaves"] == want_leaves,
+              absorbed_within_tol=absorbed["max_diff_over_scale"]
+              <= PARITY_TOL)
     emit("serve-mla", ok, card_line, **fields, tolerance=PARITY_TOL,
          absorbed_vs_expanded=absorbed, cache=cache,
          snapshot={"valid": valid, "n_leaves": plan["n_leaves"],
@@ -2792,9 +3100,11 @@ def phase_serve_parity_xlstm(card_line):
     sync()
     launches = _launches()
     free()
-    ok = (all(r["held"] for r in blocks.values()) and end["held"]
-          and blocks["mlstm"]["blocks"] + blocks["slstm"]["blocks"]
-          == cfg.n_layers and not any(launches.values()))
+    ok = {"blocks_held": all(r["held"] for r in blocks.values()),
+          "cut_held": end["held"],
+          "every_block": blocks["mlstm"]["blocks"] + blocks["slstm"]["blocks"]
+          == cfg.n_layers,
+          "no_launches": not any(launches.values())}
     emit("serve-parity-xlstm", ok, card_line, arch=XLSTM, dtype="float32",
          batch=1, prompt=xp["prompt"], split=xp["split"],
          cut_layers=XLSTM_CUT_LAYERS,
@@ -3015,8 +3325,10 @@ def phase_serve_whisper(card_line):
     free()
     want_leaves = _payload_leaves(WHISPER, ws["batch"],
                                   ws["prompt"] + ws["new_tokens"] + 8)
-    ok = (ok and parity["held"] and valid and plan["n_leaves"] == want_leaves
-          and cross == ["cache/dec/cross/k", "cache/dec/cross/v"])
+    ok.update(parity_held=parity["held"], snapshot_valid=valid,
+              snapshot_leaves=plan["n_leaves"] == want_leaves,
+              cross_leaves=cross == ["cache/dec/cross/k",
+                                     "cache/dec/cross/v"])
     emit("serve-whisper", ok, card_line, **fields, parity={
              "dtype": "float32", "batch": 1, "prompt": WHISPER_PARITY_PROMPT,
              "tolerance": PARITY_TOL, **parity},
@@ -3400,13 +3712,17 @@ def phase_train(card_line):
     n_params = count_params(cfg, TRAIN["seq"])
     per_step = counts["flash_attention_fwd"] / res.steps_run
     want = 2 * cfg.n_layers                # forward + remat recompute
-    ok = (per_step == want and res.losses[-1] < res.losses[0]
-          and all(math.isfinite(x) for x in res.losses)
-          and max(flash_gaps.values()) <= TOL["bfloat16"]
-          and cut["finite"] and cut["grad_gap"] <= PARITY_TOL
-          and update["ok"] and counts["rglru_scan"] == 0
-          and graph_check["equal"]
-          and res.captures == (1 if DEV == "cuda" else 0))
+    ok = {"flash_launches_per_step": per_step == want,
+          "loss_falls": res.losses[-1] < res.losses[0],
+          "losses_finite": all(math.isfinite(x) for x in res.losses),
+          "flash_grads_within_tol": max(flash_gaps.values())
+          <= TOL["bfloat16"],
+          "cut_finite": cut["finite"],
+          "cut_grads_within_tol": cut["grad_gap"] <= PARITY_TOL,
+          "adamw_update": update["ok"],
+          "no_rglru_launches": counts["rglru_scan"] == 0,
+          "graphed_equals_eager": graph_check["equal"],
+          "captures": res.captures == (1 if DEV == "cuda" else 0)}
     emit("train", ok, card_line, arch=ARCH, dtype="bfloat16", remat=True,
          batch=TRAIN["batch"], seq=TRAIN["seq"], steps=res.steps_run,
          lr=TRAIN["lr"], warmup=TRAIN["warmup"], step_s=step_s,
@@ -3507,11 +3823,12 @@ def phase_train_resume(card_line):
     free()
     roundtrip = _train_state_roundtrip(cfg)
     captures = 1 if DEV == "cuda" else 0
-    ok = (crashed and res.resumed_from == resumed_at
-          and ref.captures == res.captures == captures
-          and res.steps_run == TRAIN["steps"] - resumed_at and diff == 0.0
-          and roundtrip["leaves_equal"]
-          and roundtrip["rng_dtype"] == "torch.uint32")
+    ok = {"crashed": crashed, "resumed_from": res.resumed_from == resumed_at,
+          "captures": ref.captures == res.captures == captures,
+          "steps_after_resume": res.steps_run == TRAIN["steps"] - resumed_at,
+          "last_loss_equal": diff == 0.0,
+          "state_roundtrip": roundtrip["leaves_equal"],
+          "rng_dtype": roundtrip["rng_dtype"] == "torch.uint32"}
     emit("train-resume", ok, card_line, arch=ARCH, dtype="bfloat16",
          deterministic=True, fail_at_step=TRAIN["fail_at"],
          ckpt_every=TRAIN["ckpt_every"], resumed_from=res.resumed_from,
@@ -3731,15 +4048,17 @@ def phase_train_sharded(card_line):
     world = _train_sharded_world()
     want = 2 * cfg.n_layers               # forward + remat recompute
     captures = 1 if DEV == "cuda" else 0
-    ok = (all(states_equal.values()) and all(losses_equal.values())
-          and all(r["flash_launches_per_step"] == want
-                  and r["captures"] == captures for r in runs.values())
-          and crashed and all(
+    ok = {"states_equal": all(states_equal.values()),
+          "losses_equal": all(losses_equal.values()),
+          "runs": all(r["flash_launches_per_step"] == want
+                      and r["captures"] == captures for r in runs.values()),
+          "crashed": crashed,
+          "resumed": all(
               r["losses_equal"] and r["state_equal"]
               and r["resumed_from"] == ts["fail_at"]
               and r["steps_run"] == t["steps"] - ts["fail_at"]
-              and r["captures"] == captures for r in resumed.values())
-          and world["ok"])
+              and r["captures"] == captures for r in resumed.values()),
+          "world": world["ok"]}
     emit("train-sharded", ok, card_line, arch=ARCH, dtype="bfloat16",
          remat=True, batch=t["batch"], seq=t["seq"], steps=t["steps"],
          mesh={"data": 1, "model": 1}, variants=list(ts["variants"]),
@@ -3779,8 +4098,9 @@ def phase_train_families(card_line):
                       "seconds": time.perf_counter() - t0}
     counts = {k: sum(r["runs"]["graphed"]["launches"][k]
                      for r in rows.values()) for k in _launches()}
-    ok = (all(r["equal"] for r in rows.values())
-          and rows[HYBRID]["runs"]["graphed"]["launches"]["rglru_scan"] == 0)
+    ok = {"families_equal": all(r["equal"] for r in rows.values()),
+          "no_rglru_launches": rows[HYBRID]["runs"]["graphed"]["launches"][
+              "rglru_scan"] == 0}
     emit("train-families", ok, card_line, dtype="bfloat16", remat=True,
          batch=b, seq=seq, launches=counts, families=rows)
     return counts
@@ -3867,8 +4187,10 @@ def phase_dryrun(card_line):
         probe = json.loads(res["probe"]["stdout"].strip().splitlines()[-1])
     except (IndexError, ValueError):
         probe = {"error": res["probe"]["stderr"]}
-    ok = (same and all(r["rc"] == 0 for r in res.values())
-          and all(probe.get(k) == v for k, v in DRYRUN_PROBE_WANT.items()))
+    ok = {"costs_equal": same,
+          "children_rc_zero": all(r["rc"] == 0 for r in res.values()),
+          **{f"probe_{k}": probe.get(k) == v
+             for k, v in DRYRUN_PROBE_WANT.items()}}
     first = next(iter(cells.values())) or {}
     emit("dryrun", ok, card_line, cell={k: DRYRUN[k] for k in
                                         ("arch", "shape", "mesh", "variant")},
@@ -4217,8 +4539,9 @@ def phase_checkpoint_remote(card_line):
             "rglru_scan": kinds.count("rglru"),
             "quantize_int8": 0, "dequantize_int8": 0}
     losses = {kind: leg["step_loss"] for kind, leg in legs.items()}
-    ok = (all(leg["ok"] for leg in legs.values()) and hybrid["ok"]
-          and len(set(losses.values())) == 1 and counts == want)
+    ok = {**{f"leg_{name}": leg["ok"] for name, leg in legs.items()},
+          "hybrid": hybrid["ok"], "losses_equal": len(set(losses.values())) == 1,
+          "launches": counts == want}
     emit("checkpoint-remote", ok, card_line, arch=ARCH, dtype="float32",
          state_bytes=n_bytes, pre_steps=PRE_STEPS, servers=REMOTE_SERVERS,
          step_losses=losses, losses_equal=len(set(losses.values())) == 1,
@@ -4400,7 +4723,7 @@ def phase_timing(card_line):
                  for path, c in rglru_paths().items()})
     jobs[("quantize_int8", "none")] = lambda: _time_quant(gen, False)
     jobs[("dequantize_int8", "none")] = lambda: _time_quant(gen, True)
-    rows, ok = {}, True
+    rows, ok = {}, {}
     for key, job in jobs.items():
         fns, (bound_ms, bound_by, n_bytes, ops), extra = job()
         runs = in_turns(fns)
@@ -4416,7 +4739,8 @@ def phase_timing(card_line):
                 min(runs["library_efficient"]) if "library_efficient" in runs
                 else None)
         lib_err = rows[key]["library_vs_kernel_max_abs_err"]
-        ok = ok and (lib_err is None or lib_err <= TOL["bfloat16"])
+        ok[f"library_agrees_{key[0]}/{key[1]}"] = (
+            lib_err is None or lib_err <= TOL["bfloat16"])
         del fns
     for path, case in rglru_paths().items():
         rows[("rglru_scan", path)]["scratch"] = rglru_scratch(*case)
@@ -4523,6 +4847,9 @@ def main() -> int:
         counts["elastic"] = run("elastic", phase_elastic)
         counts["rankworld"] = run("rankworld", phase_rankworld)
         run("procworld", phase_procworld)
+        examples = run("examples", phase_examples)
+        if any(examples.values()):       # the legs' reduced shapes took one
+            counts["examples"] = examples
         run("serve-parity-hybrid", phase_serve_parity_hybrid)
         counts["serve-hybrid"] = run("serve-hybrid", phase_serve_hybrid)
         run("snapshot-hybrid", phase_snapshot_hybrid)

@@ -375,33 +375,76 @@ def ctx_spec(logical: Tuple[Optional[str], ...], shape) -> tuple:
     return resolve_spec(tuple(logical), tuple(shape), _CTX.mesh, _CTX.rules)
 
 
-#: site -> calls in which ``fake_strided_split`` sent that site's products
-#: to each rank's own shards (the dry-run's record reads it)
+#: site -> calls in which ``strided_split`` sent that site's products on
+#: fake tensors to each rank's own shards (the dry-run's record reads it)
 FAKE_LOCAL: Dict[str, int] = {}
 
+#: mesh shape -> whether the installed DTensor flattens two dims that two
+#: mesh dims split (``flattens_split_pairs``)
+_FLATTENS: Dict[Tuple[int, ...], bool] = {}
 
-def fake_strided_split(x, logical: Tuple[Optional[str], ...], shape,
-                       site: str):
+
+def flattens_split_pairs(mesh) -> bool:
+    """Whether DTensor, as installed, flattens a tensor's dims 0 and 1 when
+    mesh dims 0 and 1 split them (into a ``_StridedShard``): torch 2.13
+    does; torch 2.11 refuses ("Attempted to flatten multiple dimensions,
+    with dimension 1 being sharded").  Probed once a process and mesh
+    shape by a view of a small DTensor so laid out, which moves no data."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    key = tuple(mesh.shape)
+    if key not in _FLATTENS:
+        if mesh.ndim < 2:
+            _FLATTENS[key] = True
+        else:
+            x = DTensor.from_local(
+                torch.zeros(1, 1, 1, device=mesh.device_type), mesh,
+                [Shard(0), Shard(1)] + [Replicate()] * (mesh.ndim - 2),
+                run_check=False)
+            try:
+                x.reshape(-1, 1)
+                _FLATTENS[key] = True
+            except RuntimeError:
+                _FLATTENS[key] = False
+    return _FLATTENS[key]
+
+
+def strided_split(x, logical: Tuple[Optional[str], ...], shape, site: str):
     """The mesh dims of a product's operand laid out as ``logical`` (of
-    ``shape``) under the context, (dim 0's, dim 1's), where `x` is fake
-    (the dry-run's) and that layout splits both its dims 0 and 1 (batch
-    and heads, or batch and groups) and none of the rest; otherwise None.
-    Each such call is counted under ``site`` in ``FAKE_LOCAL``.
+    ``shape``) under the context, (dim 0's, dim 1's), where that layout
+    splits both its dims 0 and 1 (batch and heads, or batch and groups)
+    and none of the rest, and DTensor cannot plan the products: `x` is
+    fake (the dry-run's), or the installed DTensor cannot flatten such a
+    pair (``flattens_split_pairs``); otherwise None.  Each call on a fake
+    `x` is counted under ``site`` in ``FAKE_LOCAL``.
 
     There DTensor splits the products' flattened (dim 0 x dim 1) dim as a
-    ``_StridedShard``, and costing its redistribution calls ``.tolist()``
-    on a tensor it builds, which a fake tensor refuses (data-dependent).
-    The caller then runs the products on each rank's own shards through
-    ``local_map``: the same local products.  On real tensors DTensor keeps
-    planning them, so the numerics stay its plan's (ROADMAP Queue 3: the
-    two plans' backwards differ)."""
-    if ctx_mesh() is None or not is_fake(x):
+    ``_StridedShard``: costing its redistribution calls ``.tolist()`` on a
+    tensor it builds, which a fake tensor refuses (data-dependent), and
+    torch 2.11 has no such flatten at all.  The caller then runs the
+    products on each rank's own shards through ``local_map``: the same
+    local products.  Elsewhere DTensor keeps planning them, so the
+    numerics stay its plan's (ROADMAP Queue 3: the two plans' backwards
+    differ)."""
+    mesh = ctx_mesh()
+    if mesh is None:
         return None
     spec = ctx_spec(logical, shape)
     if None in spec[:2] or any(a is not None for a in spec[2:]):
         return None
-    FAKE_LOCAL[site] = FAKE_LOCAL.get(site, 0) + 1
-    return spec[:2]
+    if is_fake(x):
+        FAKE_LOCAL[site] = FAKE_LOCAL.get(site, 0) + 1
+        return spec[:2]
+    if (is_dtensor(x) and all(_axis_ranks(mesh, a) > 1 for a in spec[:2])
+            and not flattens_split_pairs(mesh)):
+        return spec[:2]
+    return None
+
+
+def _axis_ranks(mesh, entry) -> int:
+    """The ranks of the mesh axis, or axes, a spec entry names."""
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    return int(np.prod([mesh.shape[mesh.mesh_dim_names.index(a)]
+                        for a in names], dtype=np.int64))
 
 
 def fit_split(x, dim: int, lead: int):

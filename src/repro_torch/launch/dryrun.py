@@ -134,7 +134,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
         del out
     rec["trace_s"] = round(time.time() - t0, 2)
     # the products that ran on each rank's own shards where DTensor's
-    # plan cannot be traced (sharding.fake_strided_split), by site: the
+    # plan cannot be traced (sharding.strided_split), by site: the
     # costs there are that local plan's
     rec["local_paths"] = dict(sharding.FAKE_LOCAL)
 

@@ -42,9 +42,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import (ctx_divisible, ctx_mesh,
-                                              fake_strided_split, local_map,
+                                              is_dtensor, is_fake, local_map,
                                               placements, replicate,
-                                              shard_act, window)
+                                              shard_act, strided_split,
+                                              window)
 from repro_torch.models.layers import (DEFAULT_POLICY, Pm, apply_rope,
                                        rms_head_norm, rope_cos_sin, rope_qk)
 
@@ -192,12 +193,12 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
                        ("batch", None, "heads", None))
 
         def chunk_e(qc, qpos_c, ke, ve, k_positions):
-            s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), ke) * scale
+            s = _heads_first_einsum("bqhd,bkhd->bhqk", qc.float(), ke) * scale
             s = shard_act(s, ("batch", "heads", "seq", "kv_seq"))
             if causal:
                 s = s + _mask_bias(qpos_c, k_positions, window)[None, None]
             p = _softmax_fp32(s)
-            return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), ve)
+            return _heads_first_einsum("bhqk,bkhd->bqhd", p.to(q.dtype), ve)
 
         def core_e(q, ke, ve, q_positions, k_positions):
             outs = [chunk_e(qc, pc, ke, ve, k_positions) for qc, pc in
@@ -212,12 +213,12 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
 
     def chunk(qc, qpos_c, kf, v, k_positions):
         # fp32 scores (the reference's preferred_element_type=float32)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
+        s = _heads_first_einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
         s = shard_act(s, ("batch", "kv_heads", "heads", "seq", "kv_seq"))
         if causal:
             s = s + _mask_bias(qpos_c, k_positions, window)[None, None, None]
         p = _softmax_fp32(s)
-        return torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), v)
+        return _heads_first_einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), v)
 
     def core(q, kf, v, q_positions, k_positions):
         qf = _fold_gqa(q, kf.shape[2])                # (B,Sq,KV,G,hd)
@@ -232,15 +233,52 @@ def gqa_attention(q, k, v, *, q_positions, k_positions, window: int = 0,
                     (b, kvh, h // kvh, ql, k.shape[1])))
 
 
+def _heads_first_einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)``; where `a` is a real DTensor whose head
+    dim (``h``, or ``k`` for the kv heads) is split over several ranks
+    and whose batch dim is not, with the head dim moved to the front of
+    both operands and of the result, and the result's dims put back in
+    ``eq``'s order.  The product then flattens (heads, batch) for its
+    batched matmul, not (batch, heads): DTensor flattens a group of dims
+    only where the split one leads it in torch 2.11, which would refuse
+    heads split over a mesh axis (torch 2.13 takes either order).  Each
+    (head, row) pair's matmul is the same either way.  A split batch
+    keeps the order: it already leads (where both are split,
+    ``strided_split`` sends the products to each rank's own shards)."""
+    ins, out = eq.split("->")
+    lhs, rhs = ins.split(",")
+    head = "h" if "h" in out else "k"
+    if not (_split_over_ranks(a, lhs.index(head))
+            and not _split_over_ranks(a, lhs.index("b"))):
+        return torch.einsum(eq, a, b)
+
+    def lead(spec, x):
+        i = spec.index(head)
+        return head + spec[:i] + spec[i + 1:], x.movedim(i, 0)
+
+    (lhs, a), (rhs, b) = lead(lhs, a), lead(rhs, b)
+    first = head + out.replace(head, "")
+    res = torch.einsum(f"{lhs},{rhs}->{first}", a, b)
+    return res.movedim(0, out.index(head))
+
+
+def _split_over_ranks(x, dim: int) -> bool:
+    """Whether `x` is a real DTensor whose dim ``dim`` a mesh dim of more
+    than one rank splits."""
+    return (is_dtensor(x) and not is_fake(x)
+            and any(p.is_shard(dim) and x.device_mesh.size(i) > 1
+                    for i, p in enumerate(x.placements)))
+
+
 def _head_specs(q, s_axes, s_shape):
     """The specs that run an attention core on each rank's own rows and
     heads where its scores (logical ``s_axes`` (batch, heads or kv_heads,
-    ...), shape ``s_shape``) are laid out as ``fake_strided_split``
+    ...), shape ``s_shape``) are laid out as ``strided_split``
     allows: q and k/v (B, S, H|KV, hd) split as the scores split their
     dims 0 and 1, the positions ((S,)) whole and the masks ((B, S)) by
     the batch.  Otherwise None, and the core runs on DTensors (or plain
     tensors) as they are."""
-    split = fake_strided_split(q, s_axes, s_shape, "attention")
+    split = strided_split(q, s_axes, s_shape, "attention")
     if split is None:
         return None
     sb, sh = split

@@ -29,9 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import (ctx_mesh, fake_strided_split,
-                                              local_map, placements,
-                                              shard_act)
+from repro_torch.distributed.sharding import (ctx_mesh, local_map,
+                                              placements, shard_act,
+                                              strided_split)
 from repro_torch.models.layers import DEFAULT_POLICY, Pm, _act, apply_mlp, mlp_defs
 
 GROUP_SIZE = 256
@@ -106,11 +106,12 @@ def _routed(cfg, policy, xg, router, wi, wg, wo):
 
 def _token_split(x, combine_shape):
     """The mesh dims splitting the combine weights' (of
-    ``combine_shape``) batch and groups, where ``fake_strided_split``
-    runs the routed experts on each rank's own tokens: fake tokens `x`
-    whose groups take the model axis (not a decode step's one group,
-    where the experts take it).  Otherwise None."""
-    return fake_strided_split(
+    ``combine_shape``) batch and groups, where ``strided_split``
+    runs the routed experts on each rank's own tokens: tokens `x` (fake,
+    or split where the installed DTensor cannot flatten the pair) whose
+    groups take the model axis (not a decode step's one group, where the
+    experts take it).  Otherwise None."""
+    return strided_split(
         x, ("batch", "moe_groups", None, "experts", "expert_cap"),
         combine_shape, "moe")
 

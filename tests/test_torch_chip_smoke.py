@@ -154,9 +154,62 @@ def smoke(monkeypatch):
         set_recurrence_backend("scan")
 
 
+CARD = "cpu rehearsal, 0 W"
+#: the phases the CPU rehearses at smoke widths, one test each, in the
+#: order chip_smoke.py's main runs them (the others have tests of their
+#: own below)
+PHASES = ("kernels", "serve-parity", "serve", "checkpoint",
+          "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid",
+          "serve-parity-moe", "serve-moe", "serve-mla", "serve-parity-xlstm",
+          "serve-xlstm", "serve-whisper", "train", "train-resume",
+          "train-families", "checkpoint-remote", "timing")
+#: phase -> (what it returned, its JSON line), as each phase's test ran it
+_RUNS = {}
+
+
+def _run_phase(smoke, capsys, name):
+    """Phase `name` of chip_smoke.py on the CPU; what it returned and its
+    line, kept in ``_RUNS`` for ``test_chip_smoke_phases_on_cpu``.  A
+    phase that fails raises ``PhaseFailed`` naming its failed checks."""
+    fn = getattr(smoke, "phase_" + name.replace("-", "_"))
+    result = fn(CARD)
+    line = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith(f'{{"phase": "{name}"')][-1]
+    _RUNS[name] = (result, line)
+    return result, line
+
+
+_PATH_LAUNCHES = {
+    "serve": {"flash_attention_fwd": 3, "rglru_scan": 0},
+    "serve-hybrid": {"flash_attention_fwd": 2, "rglru_scan": 6},
+    "serve-moe": {"flash_attention_fwd": 2, "rglru_scan": 0},
+    "serve-mla": {"flash_attention_fwd": 0, "rglru_scan": 0},
+    "serve-xlstm": {"flash_attention_fwd": 0, "rglru_scan": 0},
+    "serve-whisper": {"flash_attention_fwd": 2, "rglru_scan": 0},
+    "train": {"flash_attention_fwd": 60, "rglru_scan": 0},
+    "train-families": {"flash_attention_fwd": 30, "rglru_scan": 0},
+    "checkpoint-remote": {"flash_attention_fwd": 20, "rglru_scan": 6}}
+
+
+@pytest.mark.parametrize("name", PHASES)
+def test_chip_smoke_phase_on_cpu(smoke, capsys, name):
+    """One phase at smoke widths: its line is ok, and a phase on a
+    counted path launched what that path launches (see
+    ``test_chip_smoke_phases_on_cpu`` for each phase's own checks)."""
+    result, line = _run_phase(smoke, capsys, name)
+    assert line["ok"] and "failed" not in line, line.get("failed")
+    if name in _PATH_LAUNCHES:
+        assert result == {**_PATH_LAUNCHES[name], "quantize_int8": 0,
+                          "dequantize_int8": 0}
+
+
 def test_chip_smoke_phases_on_cpu(smoke, capsys):
-    card = "cpu rehearsal, 0 W"
-    errs = smoke.phase_kernels(card)
+    """Every phase's own checks, and the kernels line built from all of
+    them, over the runs of ``test_chip_smoke_phase_on_cpu`` (a phase that
+    did not run there, as when this test runs alone, runs here)."""
+    runs = {name: _RUNS.get(name) or _run_phase(smoke, capsys, name)
+            for name in PHASES}
+    errs = runs["kernels"][0]
     assert errs == {"flash_attention_fwd": {"serve": 0.0, "serve-hybrid": 0.0,
                                             "serve-parity": 0.0,
                                             "serve-parity-hybrid": 0.0,
@@ -169,22 +222,7 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
                                    "serve-parity-hybrid": 0.0,
                                    "bf16-inputs": 0.0},
                     "quantize_int8": 0.0, "dequantize_int8": 0.0}
-    smoke.phase_serve_parity(card)
-    counts = {"serve": smoke.phase_serve(card)}
-    smoke.phase_checkpoint(card)
-    smoke.phase_serve_parity_hybrid(card)
-    counts["serve-hybrid"] = smoke.phase_serve_hybrid(card)
-    smoke.phase_snapshot_hybrid(card)
-    smoke.phase_serve_parity_moe(card)
-    counts["serve-moe"] = smoke.phase_serve_moe(card)
-    counts["serve-mla"] = smoke.phase_serve_mla(card)
-    smoke.phase_serve_parity_xlstm(card)
-    counts["serve-xlstm"] = smoke.phase_serve_xlstm(card)
-    counts["serve-whisper"] = smoke.phase_serve_whisper(card)
-    counts["train"] = smoke.phase_train(card)
-    smoke.phase_train_resume(card)
-    counts["train-families"] = smoke.phase_train_families(card)
-    counts["checkpoint-remote"] = smoke.phase_checkpoint_remote(card)
+    counts = {name: runs[name][0] for name in _PATH_LAUNCHES}
     # 3 attn layers; the tiny hybrid has 2 local_attn and 6 rglru blocks;
     # the tiny qwen 2 moe blocks, deepseek's MLA never takes flash; xLSTM
     # runs no kernel, the tiny whisper 2 decoder blocks take flash;
@@ -213,7 +251,7 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
         "checkpoint-remote": {"flash_attention_fwd": 3 * 6 + 2,
                               "rglru_scan": 6, "quantize_int8": 0,
                               "dequantize_int8": 0}}
-    timing = smoke.phase_timing(card)
+    timing = runs["timing"][0]
     row = timing[("flash_attention_fwd", "serve")]
     # q + o (36x128x64) and k, v (12x128x64), bf16, over 3.35 TB/s
     assert row["bound_by"] == "bytes"
@@ -244,8 +282,7 @@ def test_chip_smoke_phases_on_cpu(smoke, capsys):
     scratch = timing[("rglru_scan", "serve-hybrid")]["scratch"]
     assert scratch["tiles"] == 2 * 2 * 1       # 2 chunks x 2 rows x 1 tile
     assert {"serving_ms", "counting_ms"} <= set(scratch)
-    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
-             if ln.startswith('{"phase"')]
+    lines = [runs[name][1] for name in PHASES]
     assert [ln["phase"] for ln in lines] == [
         "kernels", "serve-parity", "serve", "checkpoint",
         "serve-parity-hybrid", "serve-hybrid", "snapshot-hybrid",
@@ -346,8 +383,10 @@ def test_chip_smoke_sharded_phase_on_cpu(smoke, capsys, monkeypatch):
     runs = line["worlds"]["runs"]
     assert [(w["ranks"], w["mesh"]) for w in runs] == [
         (2, {"data": 1, "model": 2})]
+    assert line["worlds"]["threads"] == 1
     for w in runs:
         for r in w["per_rank"]:
+            assert r["threads"] == 1
             assert r["tokens_equal"] and len(r["block_max_abs_diff"]) == 2
             assert r["param_bytes"] == r["param_window_bytes"] \
                 < r["param_bytes_whole"]
@@ -1115,3 +1154,90 @@ def test_chip_smoke_rankworld_phase_fails_on_a_corrupted_image(
                 if ln.startswith('{"phase": "rankworld"'))
     assert not line["ok"] and line["corrupted_chunk"].endswith(".bin")
     assert "digest mismatch" in line["error"]
+
+
+#: the examples phase at smoke flags; elastic_restart, whose three worlds
+#: take ~45 s on 8 CPU cores, runs whole in tests/test_torch_examples.py
+_EXAMPLES_SMOKE = dict(
+    legs=("quickstart", "serve_batched", "train_driver",
+          "train_driver_kill"),
+    serve=dict(arch="smollm-135m", batch=2, prompt_len=8, new_tokens=4),
+    train=dict(steps=12, preset="tiny", batch=2, seq=16, ckpt_every=3),
+    kill_at=5, migrate_steps=200)
+
+
+def test_chip_smoke_examples_phase_on_cpu(smoke, capsys, monkeypatch):
+    """The examples phase at smoke flags: quickstart's restart bitwise
+    identical; serve_batched's snapshot; train_driver crashed after step 5
+    and rerun resumes from step 3 with the uninterrupted run's losses;
+    the quickstart world live-migrated bit-equal to the one that never
+    moved, its trace merged by the trace CLI.  No kernel launches."""
+    monkeypatch.setattr(smoke, "EXAMPLES",
+                        dict(smoke.EXAMPLES, **_EXAMPLES_SMOKE))
+    counts = smoke.phase_examples(CARD)
+    assert counts == {"flash_attention_fwd": 0, "rglru_scan": 0,
+                      "quantize_int8": 0, "dequantize_int8": 0}
+    line = next(json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"phase": "examples"'))
+    assert line["ok"] and all(line["held"].values())
+    assert set(line["held"]) == {
+        "quickstart_bitwise", "serve_snapshot", "train_losses",
+        "train_crashed", "train_resumed_from_last",
+        "train_resumed_losses_equal", "all_rc_zero", "migrate_converged",
+        "migrate_params_equal", "trace_merged"}
+    results = line["results"]
+    assert results["quickstart"]["lines"] == [
+        "RESULT: cross-implementation restart bitwise identical: True"]
+    resumed = results["train_driver_kill"]["resumed"]["lines"]
+    assert "auto-resumed from checkpoint at step 3" in resumed
+    mig = line["migration"]
+    assert mig["converged"] and mig["params_equal"] and mig["pause_s"] > 0
+    assert len(mig["round_dirty_bytes"]) >= 1
+    assert mig["merge"]["events"] > 0 and mig["merge"]["dumps"] == 1
+    assert {"migrate", "migrate.round", "migrate.final"} <= set(
+        mig["merge"]["migrate_spans"])
+    assert set(line["seconds"]) == {"wall_s", "migration_s", "quickstart",
+                                    "serve_batched", "train_driver"}
+
+
+def _false_quickstart(smoke, monkeypatch):
+    """quickstart's leg reporting a restart that was not bitwise
+    identical."""
+    run = smoke._example
+
+    def example(name, *args):
+        out = run(name, *args)
+        if name == "quickstart":
+            out["stdout"] = out["stdout"].replace("identical: True",
+                                                  "identical: False")
+        return out
+
+    monkeypatch.setattr(smoke, "_example", example)
+    monkeypatch.setattr(smoke, "EXAMPLES", dict(
+        smoke.EXAMPLES, **{**_EXAMPLES_SMOKE, "legs": ("quickstart",)}))
+
+
+def test_chip_smoke_examples_phase_fails_on_a_false_result_line(
+        smoke, capsys, monkeypatch):
+    """A leg whose result line is false fails the phase, whose line names
+    the failed check, and chip_smoke.py's main exits non-zero with no
+    result line (driven on the CPU passed off as a card, the phases
+    before this one stubbed out)."""
+    _false_quickstart(smoke, monkeypatch)
+    zero = {"flash_attention_fwd": 0, "rglru_scan": 0, "quantize_int8": 0,
+            "dequantize_int8": 0}
+    for name in ("build", "serve_parity", "checkpoint", "procworld"):
+        monkeypatch.setattr(smoke, f"phase_{name}", lambda card: None)
+    for name in ("kernels", "serve", "elastic", "rankworld"):
+        monkeypatch.setattr(smoke, f"phase_{name}", lambda card: zero)
+    monkeypatch.setattr(smoke, "card", lambda: CARD)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert smoke.main() == 1
+    out, err = capsys.readouterr()
+    line = next(json.loads(ln) for ln in out.splitlines()
+                if ln.startswith('{"phase": "examples"'))
+    assert not line["ok"] and line["failed"] == ["quickstart_bitwise"]
+    assert line["results"]["quickstart"]["lines"] == [
+        "RESULT: cross-implementation restart bitwise identical: False"]
+    assert '"ok": true' not in out and '"kernels": [' not in out
+    assert "phase examples: quickstart_bitwise failed" in err

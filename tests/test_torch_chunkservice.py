@@ -1121,3 +1121,56 @@ def test_port_client_decodes_reference_error_without_the_reference(tmp_path):
     assert got == "port:client speaks chunk protocol v2, server v1", out.stderr
     assert plain == "ModuleNotFoundError"
     assert bad == "[]"
+
+
+def _grammar_app():
+    def init_fn(mpi):
+        return {"acc": np.zeros(3, np.float64)}
+
+    def step_fn(mpi, st, k):
+        st["acc"] = st["acc"] + mpi.Allreduce(
+            np.full(3, mpi.Comm_rank() + k, np.float64), "sum")
+        return st
+    return init_fn, step_fn
+
+
+def test_job_restart_and_manager_accept_one_grammar(tmp_path, server):
+    """The port's MPIJob, its restart and its CheckpointManager take one
+    store grammar: a StoreSpec object, or its canonical string, resolved
+    once; the manifest records the portable form, which the reference's
+    restart reads as well."""
+    from repro.core import MPIJob as RJob
+    from repro_torch.core import MPIJob
+    from repro_torch.core.ckpt_protocol import load_manifest
+    sp = StoreSpec.parse(server.spec_for("uni", cache=tmp_path / "cache"))
+    init_fn, step_fn = _grammar_app()
+    job = MPIJob(2, step_fn, init_fn, ckpt_store=sp)   # a StoreSpec object
+    job.checkpoint_at(3, tmp_path / "ck", resume=False)
+    job.run(6, timeout=60)
+    job.stop()
+    # one resolution point: the job memoized a single backend
+    assert isinstance(job._store_backend(), CachingChunkStore)
+    assert job._store_backend() is job._store_backend()
+    # the manifest records the portable canonical form (no cache dir):
+    # a cold-cache validate/restore needs no side channel
+    man = load_manifest(tmp_path / "ck")
+    assert man["store"] == sp.without_cache().canonical()
+    # the restart takes the canonical string for the same store
+    job2 = MPIJob.restart(tmp_path / "ck", step_fn, init_fn,
+                          ckpt_store=sp.canonical())
+    out = job2.run(6, timeout=60)
+    job2.stop()
+    ref = MPIJob.restart(tmp_path / "ck", step_fn, init_fn, ckpt_store=sp)
+    refout = ref.run(6, timeout=60)
+    ref.stop()
+    theirs = RJob.restart(tmp_path / "ck", step_fn, init_fn,
+                          ckpt_store=sp.canonical())
+    theirout = theirs.run(6, timeout=60)
+    theirs.stop()
+    for r in range(2):
+        assert np.array_equal(out[r]["acc"], refout[r]["acc"])
+        assert np.array_equal(out[r]["acc"], theirout[r]["acc"])
+    # CheckpointManager speaks the same grammar
+    mgr = CheckpointManager(tmp_path / "root", async_write=False,
+                            store=sp.with_namespace("mgr"))
+    assert mgr.store.spec == sp.with_namespace("mgr").canonical()

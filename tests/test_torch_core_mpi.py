@@ -382,3 +382,17 @@ def test_compression_matches_reference():
         g = rng.standard_normal(300).astype(np.float32) * (step + 1)
         assert _same(ef.compress("g", g), ref.compress("g", g))
     assert _same(ef.snapshot(), ref.snapshot())
+
+
+def test_tcp_transport_same_semantics():
+    def step(mpi, st, k):
+        if mpi.rank == 0:
+            mpi.Send(np.arange(3), dest=1, tag=2)
+            got = None
+        else:
+            got = mpi.Recv(source=0, tag=2)
+            assert np.array_equal(got, np.arange(3))
+        gathered = mpi.Allgather(mpi.rank)
+        assert gathered == [0, 1]
+        return {"got": got, "gathered": gathered}
+    run_both(2, step, transport="tcp")

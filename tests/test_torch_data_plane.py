@@ -11,7 +11,16 @@ Twins of tests/test_data_plane.py on ``repro_torch.core``:
   * a checkpoint mid-stream on the ring restarted on plain tcp, by the
     port and by the reference (no descriptor ever lands in an image);
   * the straggler under per-step collectives, caught through the
-    compute/wait split by the port's FaultTolerantDriver."""
+    compute/wait split by the port's FaultTolerantDriver;
+  * the scatter-gather codec: the port's bodies and frames equal the
+    reference's byte for byte and decode in either package, bufferless
+    bodies stay plain pickle, ``pack`` keeps arrays in private copies;
+  * the compute/wait telemetry in ``job.stats()`` (its keys the
+    reference's, surviving a restart) and ``StragglerTracker``'s compute
+    split, call for call the reference's."""
+import pickle
+import socket
+import struct
 import time
 
 import numpy as np
@@ -21,11 +30,19 @@ from conftest import exact_transports
 
 from repro.core import MPIJob as RJob
 from repro.core import dataplane as r_dataplane
+from repro.core import transport as r_transport
+from repro.core.messages import pack as r_pack
+from repro.distributed.faults import StragglerTracker as RStragglerTracker
 from repro_torch.core import MPIJob
 from repro_torch.core import dataplane
 from repro_torch.core.dataplane import (RING_PAYLOAD_MIN, RingRef, ShmRing,
                                         shm_available)
-from repro_torch.distributed.faults import FaultTolerantDriver
+from repro_torch.core.messages import Envelope, pack, payload_nbytes, unpack
+from repro_torch.core.transport import (SG_MAGIC, dumps_parts, frame_iov,
+                                        loads_body, read_frame_mv,
+                                        write_frame, write_frame_parts)
+from repro_torch.distributed.faults import (FaultTolerantDriver,
+                                            StragglerTracker)
 
 needs_shm = pytest.mark.skipif(not shm_available(),
                                reason="POSIX shared memory unavailable")
@@ -275,3 +292,192 @@ def test_straggler_detected_under_per_step_collectives(tmp_path):
     fields = dict(f.split("=") for f in wait_ev.split(":")[1:])
     assert float(fields["compute_s"]) > 0.5 * float(fields["wall_s"])
     assert driver.events[-1] == "done"
+
+
+# ============================================================== SG codec
+
+def _body(parts) -> bytes:
+    return b"".join(bytes(memoryview(p).cast("B")) for p in parts)
+
+
+def test_sg_body_roundtrips_arrays_out_of_band():
+    obj = {"x": np.arange(1024, dtype=np.float32),
+           "y": np.ones((3, 5), dtype=np.float64), "tag": 7}
+    body = _body(dumps_parts(obj))
+    assert SG_MAGIC == r_transport.SG_MAGIC
+    assert body[:4] == SG_MAGIC          # arrays present -> SG encoding
+    assert body == _body(r_transport.dumps_parts(obj))
+    for loads in (loads_body, r_transport.loads_body):
+        back = loads(body)
+        assert back["tag"] == 7
+        assert np.array_equal(back["x"], obj["x"])
+        assert np.array_equal(back["y"], obj["y"])
+
+
+def test_bufferless_body_is_plain_pickle():
+    """No out-of-band payloads: the body is the pickle (a pre-SG reader
+    parses it), and a pickle never aliases the magic."""
+    parts = dumps_parts(("hello", [1, 2, 3]))
+    assert len(parts) == 1
+    assert pickle.loads(parts[0]) == ("hello", [1, 2, 3])
+    assert bytes(parts[0][:4]) != SG_MAGIC
+    assert loads_body(parts[0]) == ("hello", [1, 2, 3])
+    assert bytes(parts[0]) == bytes(
+        r_transport.dumps_parts(("hello", [1, 2, 3]))[0])
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "port"), ("port", "ref"),
+                                           ("ref", "port")])
+def test_sg_frame_over_socket_yields_writable_arrays(writer, reader):
+    """A frame one package writes, the other reads: the array arrives
+    bit-equal and writable (unpack is not forced into a copy)."""
+    mods = {"port": (dumps_parts, write_frame_parts, read_frame_mv,
+                     loads_body),
+            "ref": (r_transport.dumps_parts, r_transport.write_frame_parts,
+                    r_transport.read_frame_mv, r_transport.loads_body)}
+    dumps, write, _, _ = mods[writer]
+    _, _, read, loads = mods[reader]
+    a, b = socket.socketpair()
+    try:
+        # well under the socketpair buffer: the write completes with no
+        # reader scheduled yet (single-threaded test)
+        arr = np.random.default_rng(3).standard_normal(1 << 12)
+        write(a, dumps({"w": arr}))
+        got = loads(read(b))["w"]
+        assert np.array_equal(got, arr)
+        assert got.flags.writeable
+        got += 1.0
+    finally:
+        a.close()
+        b.close()
+
+
+def test_legacy_writer_sg_reader_interop():
+    """An old-style frame (one pre-pickled body), written by either
+    package, reads through the port's read_frame_mv + loads_body."""
+    for write in (write_frame, r_transport.write_frame):
+        a, b = socket.socketpair()
+        try:
+            write(a, pickle.dumps({"k": list(range(10))}))
+            assert loads_body(read_frame_mv(b)) == {"k": list(range(10))}
+        finally:
+            a.close()
+            b.close()
+
+
+def test_frame_iov_total_matches_length_header():
+    parts = dumps_parts({"x": np.zeros(777, np.uint8), "n": 1})
+    iov = frame_iov(parts)
+    (total,) = struct.unpack("!q", bytes(iov[0]))
+    assert total == sum(v.nbytes for v in iov[1:])
+    assert [bytes(v) for v in iov] == [
+        bytes(v) for v in r_transport.frame_iov(
+            r_transport.dumps_parts({"x": np.zeros(777, np.uint8), "n": 1}))]
+
+
+def test_pack_keeps_arrays_and_makes_private_copies():
+    src = np.arange(64, dtype=np.float32)
+    payload, dt, count = pack(src)
+    assert isinstance(payload, np.ndarray) and dt == "MPI_FLOAT"
+    assert count == 64 and payload_nbytes(payload) == 256
+    assert (dt, count) == r_pack(src)[1:]
+    src += 100.0                          # sender mutates after "send"
+    assert payload[0] == 0.0              # the payload must not see it
+    env = Envelope(0, 1, 0, 0, 0, payload, dt, count)
+    out = unpack(env)
+    assert out.flags.writeable and np.array_equal(out, np.arange(64))
+
+
+def test_pack_pickles_unknown_types_as_before():
+    payload, dt, count = pack({"a": 1})
+    assert isinstance(payload, bytes) and dt == "MPI_BYTE"
+    assert payload_nbytes(payload) == len(payload) == count
+    assert (payload, dt, count) == r_pack({"a": 1})
+
+
+# =============================================================== telemetry
+
+def _coll_app(sleep_s):
+    def init_fn(mpi):
+        return {}
+
+    def step_fn(mpi, st, k):
+        time.sleep(sleep_s)
+        return dict(st, s=float(mpi.Allreduce(np.float64(1.0), "sum")))
+    return init_fn, step_fn
+
+
+def test_job_stats_expose_compute_wait_split():
+    init_fn, step_fn = _coll_app(0.002)
+    stats = {}
+    for name, cls in (("port", MPIJob), ("ref", RJob)):
+        job = cls(2, step_fn, init_fn, transport="shm")
+        try:
+            job.run(5, timeout=60)
+            stats[name] = job.stats()
+        finally:
+            job.stop()
+    st = stats["port"]
+    assert st["world_size"] == 2 and st["generation"] == 0
+    tele = st["telemetry"]
+    assert sorted(tele["ranks"]) == [0, 1]
+    for r, c in tele["ranks"].items():
+        for key in ("wait_recv_us", "wait_coll_us", "bytes_sent",
+                    "bytes_received", "ring_bytes"):
+            assert key in c, (r, key)
+        assert set(c) == set(stats["ref"]["telemetry"]["ranks"][r])
+    # an allreduce-every-step workload blocks in collectives, and the
+    # totals aggregate across ranks; the bytes are the reference's
+    assert tele["total"]["wait_coll_us"] > 0
+    assert tele["total"]["bytes_sent"] > 0
+    for key in ("bytes_sent", "bytes_received"):
+        assert tele["total"][key] == stats["ref"]["telemetry"]["total"][key]
+    strag = st["stragglers"]
+    for r in (0, 1):
+        assert strag[r]["compute_s"] is not None
+        assert strag[r]["wait_s"] >= 0.0
+
+
+def test_wait_telemetry_survives_checkpoint_restart(tmp_path):
+    """Counters resume from the snapshot, not from zero: the port's
+    restart of its own checkpoint, and of the reference's, report totals
+    that cover the steps before the checkpoint."""
+    init_fn, step_fn = _coll_app(0.0)
+    for writer in (MPIJob, RJob):
+        ck = tmp_path / writer.__module__
+        job = writer(2, step_fn, init_fn, transport="shm")
+        job.checkpoint_at(3, ck, resume=False)
+        job.run(6, timeout=60)
+        job.stop()
+        job2 = MPIJob.restart(ck, step_fn, init_fn, transport="shm")
+        try:
+            job2.run(6, timeout=60)
+            tele = job2.stats()["telemetry"]
+        finally:
+            job2.stop()
+        assert tele["total"]["wait_coll_us"] > 0
+
+
+def test_straggler_tracker_prefers_compute_split():
+    """Wall-clock EWMAs are uniform under per-step collectives (everyone
+    waits for the slowest rank), so the legacy path flags nobody; the
+    compute split names the culprit, with the reference's report."""
+    trackers = (StragglerTracker(3, factor=3.0),
+                RStragglerTracker(3, factor=3.0))
+    for t in trackers:
+        for _ in range(4):
+            for r in range(3):            # all walls identical: blind
+                t.record(r, 0.100, compute=0.090 if r == 2 else 0.002)
+    t = trackers[0]
+    assert t.stragglers() == [2] == trackers[1].stragglers()
+    rep = t.report()
+    assert rep == trackers[1].report()
+    assert rep[2]["wait_s"] == pytest.approx(0.010, abs=1e-9)
+    assert rep[0]["wait_s"] == pytest.approx(0.098, abs=1e-9)
+
+    legacy = StragglerTracker(3, factor=3.0)
+    for _ in range(4):
+        for r in range(3):
+            legacy.record(r, 0.100)       # wall-only callers: old behavior
+    assert legacy.stragglers() == []
+    assert legacy.report()[0]["compute_s"] is None

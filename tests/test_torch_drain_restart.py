@@ -428,3 +428,39 @@ def test_loading_another_reference_class_is_refused(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split("\n")[0] == \
         "[('status', True), ('v2', True)] []", proc.stdout
+
+
+def test_paper_supported_subset_only(tmp_path):
+    """A program using only the paper's §5 validated calls checkpoints in
+    the port and restarts on tcp, in the port and in the reference, to the
+    reference's uninterrupted log: the faithful-reproduction gate."""
+    def init_fn(mpi):
+        return {"log": []}
+
+    def step_fn(mpi, st, k):
+        # Init/Comm_size/Comm_rank/Type_size exercised by runtime + here
+        assert mpi.Type_size("MPI_FLOAT") == 4
+        n, me = mpi.Comm_size(), mpi.Comm_rank()
+        if me == 0:
+            mpi.Send(np.float32([k]), dest=1, tag=0)
+        elif me == 1:
+            flag, status = mpi.Iprobe(source=0, tag=0)
+            if not flag:
+                status = mpi.Probe(source=0, tag=0)
+            assert mpi.Get_count(status, "MPI_FLOAT") == 1
+            st["log"].append(float(mpi.Recv(source=0, tag=0)[0]))
+        return st
+
+    ref_job = RJob(2, step_fn, init_fn)
+    ref = ref_job.run(8, timeout=30)
+    ref_job.stop()
+    job = MPIJob(2, step_fn, init_fn)
+    job.checkpoint_at(4, tmp_path / "ck", resume=False)
+    job.run(8, timeout=30)
+    job.stop()
+    for cls in (MPIJob, RJob):
+        job2 = cls.restart(tmp_path / "ck", step_fn, init_fn,
+                           transport="tcp")
+        out = job2.run(8, timeout=30)
+        job2.stop()
+        assert out[1]["log"] == ref[1]["log"] == [float(k) for k in range(8)]

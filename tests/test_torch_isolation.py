@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither jax nor the reference package.
 
-In a fresh interpreter, importing every module of ``repro_torch`` leaves no
-``jax*`` and no ``repro``/``repro.*`` module in ``sys.modules``; and no
-source file of the port, nor chip_smoke.py, names them in an import."""
+In a fresh interpreter, importing every module of ``repro_torch`` and
+loading every example of ``examples/torch`` (their imports, not their
+``main``) leaves no ``jax*`` and no ``repro``/``repro.*`` module in
+``sys.modules``; and no source file of the port, nor chip_smoke.py, nor
+an example of ``examples/torch``, names them in an import."""
 import json
 import os
 import re
@@ -18,6 +20,11 @@ import importlib, pkgutil, sys
 import repro_torch, repro_torch.serve.engine, repro_torch.launch.serve
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
+import glob, runpy
+examples = sorted(glob.glob("examples/torch/*.py"))
+assert len(examples) == 4, examples
+for path in examples:
+    runpy.run_path(path, run_name="probe")
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad)
@@ -38,7 +45,9 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_sources_import_no_jax_and_no_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 4
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 10
     hits = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
             for f in files}

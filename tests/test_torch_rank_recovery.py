@@ -1,6 +1,9 @@
 """Mid-collective recovery and live migration on the port's thread world,
 held against the reference package's unfaulted runs.
 
+The replay primitives that finish an op centrally reproduce the wire
+dance's float association bit for bit, as the reference's do.
+
 One twin each of tests/test_midstep_recovery.py's thread-world cases (a
 rank killed inside the ring allreduce: the in-flight step finishes over
 the survivors, no generation bump, no restart, zero recomputation) and of
@@ -17,10 +20,13 @@ import numpy as np
 import pytest
 
 from repro.core import MPIJob as RJob
+from repro.core import recovery as r_recovery
+from repro.distributed.faults import FaultTolerantDriver as RDriver
 from repro_torch.core import MPIJob
 from repro_torch.core import migrate as migration
+from repro_torch.core import recovery
 from repro_torch.core.ckpt_protocol import checkpoint_valid, load_manifest
-from repro_torch.distributed.faults import RankKilled
+from repro_torch.distributed.faults import FaultTolerantDriver, RankKilled
 
 N = 3
 STEPS = 6
@@ -160,3 +166,115 @@ def test_live_migrate_bit_identical(tmp_path, transport):
     assert st["migrations"] == 1
     assert st["migrate_rounds"] == len(rep["rounds"])
     assert st["migrate_pause_s"] > 0.0
+
+
+# ------------------------------------------------------- bit-exact replay
+
+def _one_shot_allreduce(algo):
+    init, _ = _acc_app()
+
+    def step(mpi, st, k):
+        rng = np.random.default_rng(st["seed"])
+        x = rng.standard_normal(37)      # uneven chunks: 13/12/12
+        return {"x": x, "tot": mpi.Allreduce(x, op="sum", algo=algo)}
+    job = MPIJob(N, step, init)
+    out = job.run(1, timeout=60)
+    job.stop()
+    return out
+
+
+@pytest.mark.parametrize("algo,replay,r_replay", [
+    ("ring", recovery.replay_ring, r_recovery.replay_ring),
+    ("tree", recovery.replay_tree, r_recovery.replay_tree),
+])
+def test_replay_matches_the_wire_dance_bit_for_bit(algo, replay, r_replay):
+    """replay_ring/replay_tree reproduce the exact float association of the
+    wire algorithms, as the reference's replays of the same contributions
+    do: a centrally finished op is indistinguishable from the dance."""
+    out = _one_shot_allreduce(algo)
+    contribs = [out[r]["x"] for r in range(N)]
+    expect = replay(contribs, "sum")
+    assert np.array_equal(np.asarray(expect), np.asarray(r_replay(contribs,
+                                                                  "sum")))
+    for r in range(N):
+        got = out[r]["tot"]
+        assert np.array_equal(np.asarray(got).reshape(-1),
+                              np.asarray(expect).reshape(-1)), (algo, r)
+
+
+# ------------------------------- survive the step, through the driver
+
+def _killed(where):
+    """The accumulator with VICTIM raising RankKilled at ring hop `where`
+    of step KILL_STEP (generation 0 only)."""
+    init, step = _acc_app()
+
+    def killer_step(mpi, st, k):
+        if mpi.rank == VICTIM and k == KILL_STEP and mpi.generation == 0:
+            def hook(phase, hop):
+                if (phase, hop) == where:
+                    raise RankKilled(f"injected at {where}")
+            mpi._hop_hook = hook
+        return step(mpi, st, k)
+    return init, killer_step
+
+
+def _drive(driver_cls, job_cls, tmp_path, where, transport):
+    init, step = _killed(where)
+    driver = driver_cls(
+        job_factory=lambda: job_cls(N, step, init, transport=transport,
+                                    heartbeat_timeout=5.0),
+        restart_factory=lambda d, tr: job_cls.restart(
+            d, step, init, transport=tr),
+        ckpt_root=tmp_path / "ck", ckpt_every=100)
+    out = driver.run(STEPS, transport_after_failure=transport, timeout=60)
+    return driver, out
+
+
+def _assert_survived(tmp_path, where, transport, control):
+    """The port's FaultTolerantDriver finishes the step over the survivors
+    in the same incarnation (no bump, no restart, nothing recomputed),
+    bit-equal to the unfaulted control, with the events and the recovery
+    the reference's driver reports for the same fault."""
+    driver, out = _drive(FaultTolerantDriver, MPIJob, tmp_path / "port",
+                         where, transport)
+    ref, _ = _drive(RDriver, RJob, tmp_path / "ref", where, transport)
+    assert driver.events[-1] == "done"
+    assert any(e.startswith("recover:") for e in driver.events), driver.events
+    assert not any(e.startswith(("restart:", "dead:", "failure:"))
+                   for e in driver.events), driver.events
+    assert [e.kind for e in driver.events] == [e.kind for e in ref.events]
+    assert driver.membership.generation == 0
+    rep = driver.recoveries[0]
+    assert rep["dead"] == [VICTIM]
+    assert rep["rerun_ops"] == 0          # zero recomputation, ever
+    # completed_ops is 1 where the survivors are provably stuck in the op
+    # (mid reduce-scatter) and timing-dependent past it, in both packages
+    keys = ("dead", "rerun_ops") + (("completed_ops",) if where[0] == "rs"
+                                    else ())
+    assert {k: rep[k] for k in keys} == {k: ref.recoveries[0][k]
+                                         for k in keys}
+    for r in range(N):
+        if r == VICTIM:
+            continue
+        assert out[r]["steps_run"] == STEPS          # no step ran twice
+        assert np.array_equal(out[r]["acc"], control[r]["acc"]), r
+    return rep
+
+
+@pytest.mark.parametrize("where", [("rs", 0), ("rs", 1), ("ag", 0),
+                                   ("ag", 1)])
+def test_thread_shm_kill_inside_allreduce_survives(tmp_path, control, where):
+    """Thread world, shm: the victim dies at every distinct ring position
+    (entering the reduce-scatter, mid-fold, entering the allgather, its
+    last hop); every position recovers over the survivors."""
+    rep = _assert_survived(tmp_path, where, "shm", control)
+    if where[0] == "rs":
+        # mid-reduce the survivors are stuck in the op: it was finished
+        # centrally from the ledger
+        assert rep["completed_ops"] == 1
+
+
+def test_thread_tcp_kill_inside_allreduce_survives(tmp_path, control):
+    rep = _assert_survived(tmp_path, ("rs", 1), "tcp", control)
+    assert rep["completed_ops"] == 1
