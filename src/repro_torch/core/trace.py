@@ -32,6 +32,12 @@ Design constraints, in order:
     a week-long world dumps the same size file as a ten-second test.
   * fork() inherits the parent's ring; an ``os.register_at_fork`` hook
     clears it in the child so rank dumps contain only their own events.
+  * Device spans (``device_span``) time work queued on a CUDA stream
+    with two timing events, never a synchronize: they wait in the
+    recorder until their end event has completed and are resolved into
+    ordinary spans (``cat="device"``) when the ring is read.  One anchor
+    a device (an event whose completion the host saw at a known
+    CLOCK_MONOTONIC time) puts them on the host spans' clock.
 """
 from __future__ import annotations
 
@@ -62,6 +68,19 @@ def set_enabled(on: bool) -> None:
 # -- ids ---------------------------------------------------------------------
 _rand = random.Random()
 _seq = itertools.count(1)
+#: this process's pid, read once and again in a forked child: where system
+#: calls are trapped, ``os.getpid()`` costs ten microseconds or more a
+#: call, as much as the rest of a span
+_PID = os.getpid()
+
+
+def _read_pid() -> None:
+    global _PID
+    _PID = os.getpid()
+
+
+if hasattr(os, "register_at_fork"):          # pragma: no branch
+    os.register_at_fork(after_in_child=_read_pid)
 
 
 def _new_trace_id() -> int:
@@ -71,7 +90,7 @@ def _new_trace_id() -> int:
 def _new_span_id() -> int:
     # pid-salted sequence: unique within a process, disjoint across the
     # forked children of one world (pid differs), cheap to mint
-    return (os.getpid() << 24) ^ next(_seq) ^ (_rand.getrandbits(20) << 44)
+    return (_PID << 24) ^ next(_seq) ^ (_rand.getrandbits(20) << 44)
 
 
 # -- typed events ------------------------------------------------------------
@@ -135,21 +154,58 @@ def from_wire(d: dict) -> Union[SpanEvent, InstantEvent]:
 class FlightRecorder:
     """Bounded per-process ring of events.  ``deque.append`` is atomic
     under the GIL, so the hot emit path takes no lock; ``snapshot`` and
-    ``clear`` are the only multi-step operations."""
+    ``clear`` are the only multi-step operations.
+
+    Device spans whose end has not completed on the device wait beside
+    the ring (``hold``), as many as the ring holds events; ``snapshot``
+    first moves every finished one into the ring."""
 
     def __init__(self, cap: Optional[int] = None):
         self._buf: deque = deque(maxlen=cap or tunables.TRACE_RING)
+        self._pending: deque = deque()
+        self._lock = threading.Lock()
 
     def add(self, ev) -> None:
         self._buf.append(ev)
 
+    def hold(self, span: "_DeviceSpan") -> None:
+        """Keeps a closed device span until its end event is done; when
+        as many wait as the ring holds, the finished ones are resolved and,
+        if none is, the oldest is dropped."""
+        with self._lock:
+            if len(self._pending) >= self._buf.maxlen:
+                self._resolve()
+                if len(self._pending) >= self._buf.maxlen:
+                    self._pending.popleft()
+            self._pending.append(span)
+
+    def _resolve(self) -> None:
+        keep = deque()
+        for sp in self._pending:
+            if sp.done():
+                self._buf.append(sp.event())
+            else:
+                keep.append(sp)
+        self._pending = keep
+
     def clear(self) -> None:
+        with self._lock:
+            self._pending.clear()
         self._buf.clear()
+
+    def _after_fork(self) -> None:
+        """The child's empty recorder: a new lock, since a thread of the
+        parent may have held the old one at the fork."""
+        self._lock = threading.Lock()
+        self.clear()
 
     def __len__(self) -> int:
         return len(self._buf)
 
     def snapshot(self) -> list:
+        if self._pending:
+            with self._lock:
+                self._resolve()
         return list(self._buf)
 
 
@@ -158,7 +214,7 @@ _RECORDER = FlightRecorder()
 # fork() copies the parent's ring into the child: clear it so a rank
 # child's dump holds only events that happened in that rank's process
 if hasattr(os, "register_at_fork"):          # pragma: no branch
-    os.register_at_fork(after_in_child=_RECORDER.clear)
+    os.register_at_fork(after_in_child=_RECORDER._after_fork)
 
 
 def recorder() -> FlightRecorder:
@@ -170,7 +226,8 @@ def clear() -> None:
 
 
 def events() -> list:
-    """The recorded events, oldest first."""
+    """The recorded events, oldest first (a device span is placed when it
+    is resolved, after the host spans that closed while it ran)."""
     return _RECORDER.snapshot()
 
 
@@ -263,8 +320,103 @@ class _Span:
         _RECORDER.add(SpanEvent(
             name=self.name, trace_id=self.trace_id, span_id=self.span_id,
             parent_id=self.parent_id, t0=self.t0,
-            dur=time.monotonic() - self.t0, pid=os.getpid(), cat=self.cat,
+            dur=time.monotonic() - self.t0, pid=_PID, cat=self.cat,
             rank=self.rank, generation=self.generation, args=self.args))
+
+
+# -- device spans ------------------------------------------------------------
+
+#: device index -> (event, CLOCK_MONOTONIC seconds at which the host saw
+#: it complete)
+_ANCHORS: Dict[int, tuple] = {}
+if hasattr(os, "register_at_fork"):          # pragma: no branch
+    os.register_at_fork(after_in_child=_ANCHORS.clear)
+
+
+def _take_anchor(device):
+    import torch
+    torch.cuda.synchronize(device)
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    ev.synchronize()
+    return ev, time.monotonic()
+
+
+def _cuda_device(device):
+    import torch
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class _DeviceSpan(_Span):
+    """A span of the work queued on ``device``'s current stream inside the
+    block.  On CUDA, a timing event is recorded at entry and at exit and
+    the closed span waits in the recorder until the exit event is done;
+    it then becomes a ``SpanEvent`` whose ``t0`` and ``dur`` are the
+    device's, placed on CLOCK_MONOTONIC through the device's anchor.
+    ``args["launch_t"]`` is the host's clock at entry.  Off CUDA, or
+    inside a graph capture (where no timing event may be recorded), it
+    is a host span.  Context-manager use only."""
+
+    __slots__ = ("_stream", "_anchor", "_start", "_stop")
+
+    def __init__(self, name: str, device, parent=None,
+                 args: Optional[dict] = None):
+        super().__init__(name, parent=parent, cat="device", args=args)
+        self._start = self._stop = None
+        import torch
+        if torch.device(device).type != "cuda":
+            return
+        device = _cuda_device(device)
+        if torch.cuda.is_current_stream_capturing():
+            return
+        self._stream = torch.cuda.current_stream(device)
+        self._anchor = _ANCHORS.get(device.index)
+        if self._anchor is None:
+            self._anchor = _ANCHORS[device.index] = _take_anchor(device)
+        self._start = torch.cuda.Event(enable_timing=True)
+
+    def __enter__(self) -> "_DeviceSpan":
+        self.t0 = time.monotonic()
+        self.args["launch_t"] = self.t0
+        if self._start is not None:
+            self._start.record(self._stream)
+        return super().__enter__()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self._start is not None:
+            import torch
+            self._stop = torch.cuda.Event(enable_timing=True)
+            self._stop.record(self._stream)
+        super().__exit__(exc_type, exc, tb)
+
+    def end(self, **extra) -> None:
+        if not self._open:
+            return
+        self._open = False
+        self.args.update(extra)
+        if self._start is None:
+            _RECORDER.add(self._event(self.t0, time.monotonic() - self.t0))
+        else:
+            _RECORDER.hold(self)
+
+    def done(self) -> bool:
+        return self._stop is not None and self._stop.query()
+
+    def event(self) -> SpanEvent:
+        """The resolved span (its exit event done)."""
+        ev, host = self._anchor
+        return self._event(host + ev.elapsed_time(self._start) / 1e3,
+                           self._start.elapsed_time(self._stop) / 1e3)
+
+    def _event(self, t0: float, dur: float) -> SpanEvent:
+        return SpanEvent(
+            name=self.name, trace_id=self.trace_id, span_id=self.span_id,
+            parent_id=self.parent_id, t0=t0, dur=dur, pid=_PID,
+            cat=self.cat, rank=self.rank, generation=self.generation,
+            args=self.args)
 
 
 class _NullSpan:
@@ -312,6 +464,18 @@ def begin(name: str, parent=None, cat: str = "repro",
                  generation=generation, args=args)
 
 
+def device_span(name: str, device, parent=None,
+                args: Optional[dict] = None):
+    """Context manager: a span of the work the block queues on ``device``
+    (``_DeviceSpan``), parented like ``span()``.  It never synchronizes,
+    except for the device's anchor, taken once a process at its first
+    device span.  No-op singleton when tracing is disabled: no event is
+    built and no anchor taken."""
+    if not ENABLED:
+        return _NULL
+    return _DeviceSpan(name, device, parent=parent, args=args)
+
+
 def instant(name: str, parent=None, cat: str = "repro",
             rank: Optional[int] = None, generation: Optional[int] = None,
             args: Optional[dict] = None) -> None:
@@ -321,7 +485,7 @@ def instant(name: str, parent=None, cat: str = "repro",
     trace_id, parent_id = _resolve_parent(parent)
     _RECORDER.add(InstantEvent(
         name=name, trace_id=trace_id, span_id=None, parent_id=parent_id,
-        t=time.monotonic(), pid=os.getpid(), cat=cat, rank=rank,
+        t=time.monotonic(), pid=_PID, cat=cat, rank=rank,
         generation=generation, args=dict(args) if args else {}))
 
 
@@ -369,7 +533,7 @@ class BatchWindow:
         _RECORDER.add(SpanEvent(
             name=self.name, trace_id=_new_trace_id(),
             span_id=_new_span_id(), parent_id=None, t0=t0,
-            dur=time.monotonic() - t0, pid=os.getpid(), cat=self.cat,
+            dur=time.monotonic() - t0, pid=_PID, cat=self.cat,
             rank=self.rank,
             args={"batches": self._n, "commands": self._cmds,
                   "busy_s": round(self._busy, 6)}))
@@ -458,7 +622,7 @@ def merge_dumps(paths: Iterable) -> dict:
     def tid_for(ev) -> int:
         if ev.rank is not None:
             return 100 + ev.rank
-        return {"proxy": 2, "chunkservice": 3}.get(ev.cat, 1)
+        return {"proxy": 2, "chunkservice": 3, "device": 4}.get(ev.cat, 1)
 
     for meta, events in dumps:
         pid = meta.get("pid", 0)

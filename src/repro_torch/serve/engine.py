@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import trace
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.sharding import (ShardingRules, copy_into,
                                               is_dtensor, lay_out,
@@ -163,7 +164,10 @@ class ServeEngine:
         request of a key also pays its captures, as the reference's first
         call pays its compile.  ``n_new=0`` gives what the reference gives:
         the prefill's greedy token, (B, 1), and ``pos`` = P + 1."""
-        with self.no_grad():
+        b, p = prompts.shape
+        with trace.span("serve.generate",
+                        args={"b": b, "p": p, "n_new": n_new}), \
+                self.no_grad():
             return self._generate(prompts, n_new, extras)
 
     def _generate(self, prompts, n_new, extras) -> GenResult:
@@ -174,24 +178,29 @@ class ServeEngine:
                              f"least 0 and at most max_seq {self.max_seq} "
                              f"(the prefill's token included)")
         dev = self.device
-        extras = {k: torch.as_tensor(np.asarray(x), device=dev)
-                  for k, x in (extras or {}).items()}
-        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
-                                 device=dev)
-        batch = self._batch(b)
-        prompt = self._prompt(tokens, extras)
+        with trace.span("serve.inputs"):
+            extras = {k: torch.as_tensor(np.asarray(x), device=dev)
+                      for k, x in (extras or {}).items()}
+            tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                                     device=dev)
+            batch = self._batch(b)
+            prompt = self._prompt(tokens, extras)
         synchronize(dev)
         t0 = time.perf_counter()
         prefill, decode = self._programs(batch, prompt)
-        prefill()
+        with trace.device_span("serve.prefill", dev):
+            prefill()
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        for _ in range(n_new - 1):
-            decode()
-        toks = batch.seq[:, p:p + n_out].cpu().numpy().astype(np.int32)
-        synchronize(dev)
+        if n_new > 1:
+            with trace.device_span("serve.decode", dev):
+                for _ in range(n_new - 1):
+                    decode()
+        with trace.span("serve.read"):
+            toks = batch.seq[:, p:p + n_out].cpu().numpy().astype(np.int32)
+            synchronize(dev)
         t_decode = time.perf_counter() - t0
         self.cache, self.pos = batch.cache, batch.pos + 1
         self.generated.append(toks)
@@ -288,11 +297,17 @@ class ServeEngine:
             # all of which the prefill then rewrites; pos 0 keeps its
             # indices in range whatever the last request left there
             batch.pos.zero_()
-            self._graphs[decode_key] = self._capture(decode)
-        if prefill_key not in self._graphs:         # prefill is idempotent
-            self._graphs[prefill_key] = self._capture(prefill)
-        return (self._graphs[prefill_key].replay,
-                self._graphs[decode_key].replay)
+        decode = self._graph(decode_key, decode)
+        prefill = self._graph(prefill_key, prefill)  # prefill is idempotent
+        return prefill.replay, decode.replay
+
+    def _graph(self, key, step) -> ops.CountedGraph:
+        """The graph of ``key``, captured from ``step`` where it is missing,
+        under a ``serve.capture`` span that names its kind and shape."""
+        if key not in self._graphs:
+            with trace.span("serve.capture", args={"key": str(key[:2])}):
+                self._graphs[key] = self._capture(step)
+        return self._graphs[key]
 
     def _capture(self, step) -> ops.CountedGraph:
         """One warm-up of ``step`` on a side stream (it builds and loads the

@@ -60,8 +60,11 @@ class TrainResult:
     resumed_from: Optional[int] = None
     ckpt_stats: dict = field(default_factory=dict)
     wall_s: float = 0.0
-    #: wall seconds of each step run; the step's loss read (every step with
-    #: ``log_every=1``) waits for the device
+    #: wall seconds of each step run, from the batch's build to the step's
+    #: return and its loss read: a step whose loss is read (every step with
+    #: ``log_every=1``) waits for the device, another times only the host's
+    #: build and launch.  The device's own time of a graphed step is its
+    #: ``train.step`` span (``repro_torch.core.trace``)
     step_s: List[float] = field(default_factory=list)
     #: CUDA graphs captured and the seconds their captures took (0 on the
     #: CPU); the first step of a run includes its capture

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
+from repro_torch.core import trace
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.sharding import (ShardingRules, copy_into,
                                               is_dtensor, lay_out, layout_for,
@@ -403,9 +404,10 @@ class GraphedTrainStep:
                 or len(leaves) != len(self._leaves)
                 or any(a is not b for a, b in zip(leaves, self._leaves))):
             return state, self._capture(state, batch, key, leaves)
-        for k, v in batch.items():
-            copy_into(self._batch[k], v)
-        self._graph.replay()
+        with trace.device_span("train.step", self.device):
+            for k, v in batch.items():
+                copy_into(self._batch[k], v)
+            self._graph.replay()
         return state, self._metrics
 
     def _buffers(self, batch) -> dict:
@@ -447,14 +449,15 @@ class GraphedTrainStep:
         self._batch = self._buffers(batch)
         self._key, self._leaves = key, leaves
         step = functools.partial(self._step, state, self._batch)
-        with self._on_side_stream():
-            metrics = step()                    # the first step, eagerly
-        t0 = time.perf_counter()
-        recorded = []
-        launches = ops.capture_launches(
-            lambda: recorded.extend(self._record(step)))
-        synchronize(self.device)
-        self.capture_s += time.perf_counter() - t0
+        with trace.span("train.capture"):
+            with self._on_side_stream():
+                metrics = step()                # the first step, eagerly
+            t0 = time.perf_counter()
+            recorded = []
+            launches = ops.capture_launches(
+                lambda: recorded.extend(self._record(step)))
+            synchronize(self.device)
+            self.capture_s += time.perf_counter() - t0
         self.captures += 1
         graph, self._metrics = recorded
         self._graph = ops.CountedGraph(graph, launches)
